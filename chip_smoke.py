@@ -9,20 +9,35 @@ It imports torch, numpy and the port, never JAX.  The phases run in order;
 a failed phase exits non-zero before the final line:
 
 1. card and build: the card's name and power limit as nvidia-smi gives
-   them, then K1 (``raytracers_tpu_torch/csrc/megakernel.cu``) compiled for
-   sm_90a, with the build time and ptxas's register report;
-2. kernel against plain version: rgbbox and irreg at 200x200 through
+   them, then every kernel of ``raytracers_tpu_torch/csrc`` compiled for
+   sm_90a (one nvcc each, all started together), with the build times and
+   ptxas's register reports;
+2. K1 against its plain version: rgbbox and irreg at 200x200 through
    ``render_pallas`` (scanline and block tiles, depth 1 and 50: mode K1a)
    and ``render_pallas_twophase`` with the scene's class schedule and sort
    prefixes (K1a with state out, then K1b continuations), all with the
    per-ray counters (K1c).  Every K1 launch is repeated by the plain version
    on the same inputs on the card, and the images, state rows and counters
    must be bit-equal;
-3. goldens: ``render(mode="pallas")`` at 200x200 against ``tests/golden``;
-4. main path: ``prepare_scene`` + ``render(mode="pallas")`` at 1000x1000,
-   depth 50, for each scene: launches counted from zero around one render,
-   render times with CUDA events, per-phase K1 times, counters, K1's bound,
-   and the full-size image against the plain version on the card.
+3. K1d and K2 against their plain versions at 200x200, both scenes: record
+   renders single- and multi-phase, scanline and block (records, pay at
+   bounces, state rows bit-equal); the fwd+bwd engine whole-path and at the
+   scene's ``pallas_diff_config``, with every K2 launch repeated by the
+   plain version (per-ray cotangents, carries and per-bounce cotangents
+   bit-equal; the slot table within its summation-order bound); the
+   replayed colours of K2 (``emit_fwd``) bit-equal to K1d's at depth 50;
+4. goldens: ``render(mode="pallas")`` at 200x200 against ``tests/golden``;
+5. main path, render: ``prepare_scene`` + ``render(mode="pallas")`` at
+   1000x1000, depth 50, for each scene: launches counted from zero around
+   one render, render times with CUDA events, per-phase K1 times, counters,
+   K1's bound, and the full-size image against the plain version;
+6. main path, fwd+bwd: ``make_render_pallas_diff`` at 1000x1000, depth 50,
+   with the scene's ``pallas_diff_config``, then ``loss.backward()`` for
+   ``loss = (f(spheres, cam) ** 2).sum()``: launches counted from zero
+   around one step (K1d once a phase, K2 once a segment), finite non-zero
+   gradients, step times with CUDA events, per-launch K1d and K2 times, one
+   profiled step, the bounds, and the gradient against the plain engine on
+   the card.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,8 +53,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SCENES = ("rgbbox", "irreg")
 SIZE, DEPTH = 1000, 50          # the main path's image and bounce cap
-CHECK_SIZE = 200                # phases 2 and 3
+CHECK_SIZE = 200                # phases 2 to 4
 REPEATS = 5                     # timed renders per scene
+FB_REPEATS = 3                  # timed fwd+bwd steps per round
 
 # H100 SXM published peaks at a 700 W power limit: 67 TFLOP/s float32
 # outside the tensor cores, i.e. 33.5e12 lane operations a second with a
@@ -51,6 +67,15 @@ OPS_PER_SLOT = 30               # one (ray, sphere) test of the visit loop
 OPS_PER_CULL_ROW = 25           # one AABB slab test and occlusion gate
 OPS_PER_BOUNCE = 60             # per-bounce set-up, readback and shading
 STATE_BYTES = 13 * 4            # the ray state a phase reads or writes
+# K2's lane operations per replayed step, counted in csrc/replay_bwd.cu and
+# csrc/ray_math.cuh (a square root or a division counted as one): a bounce
+# replayed in pass 1 (110) and replayed and reversed in pass 2 (254), or a
+# step that ends the path (a miss: its colour, then the carry's seed)
+OPS_PER_K2_BOUNCE = 364
+OPS_PER_K2_END = 65
+K2_SCRATCH_BYTES = 2 * 9 * 4    # o, d, light of a step, written and read
+PAY_BYTES = 28                  # the winner's 7 fields, at a bounce
+F32_EPS = 2.0 ** -24            # float32 unit roundoff
 
 GOLDENS = (("rgbbox", 1, "rgbbox_200_d1.ppm", 0.0, 0.0),
            ("rgbbox", DEPTH, "rgbbox_200.ppm", 0.15, 6.0),
@@ -97,6 +122,8 @@ def _abs_err(a, b, packed: bool) -> float:
     """Largest difference: float values as floats, packed pixels by
     channel, counters as integers."""
     import torch
+    if a.numel() == 0:
+        return 0.0
     if a.dtype == torch.float32:
         d = (a - b).abs()
         return float(torch.nan_to_num(d, nan=float("inf")).max())
@@ -126,14 +153,92 @@ class Checked:
         self.checks += 1
 
     def __call__(self, scene, params, n_rays, tile, **kw):
-        out, stats = self.mk.megakernel(scene, params, n_rays, tile, **kw)
-        ref, ref_stats = self.mk.megakernel_reference(scene, params, n_rays,
-                                                      tile, **kw)
+        out = self.mk.megakernel(scene, params, n_rays, tile, **kw)
+        ref = self.mk.megakernel_reference(scene, params, n_rays, tile, **kw)
         what = "state rows" if kw.get("emit_state") else "packed image"
-        self.compare(what, out, ref)
-        if stats is not None:
-            self.compare("counters", stats, ref_stats, packed=False)
-        return out, stats
+        self.compare(what, out[0], ref[0])
+        if out[1] is not None:
+            self.compare("counters", out[1], ref[1], packed=False)
+        if kw.get("record_depth") is not None:
+            self.compare("records", out[2], ref[2], packed=False)
+            if out[3] is not None:
+                # pay is defined only at bounces
+                bnc = out[2] >= 0
+                self.compare("pay at bounces",
+                             out[3][:, :7].permute(1, 0, 2)[:, bnc],
+                             ref[3][:, :7].permute(1, 0, 2)[:, bnc])
+        return out
+
+
+def _slot_bound(rec, cot_step, n_slots):
+    """The float64 sum of each slot's per-bounce cotangents, the sum of
+    their magnitudes and their count: a float32 sum of them in any order
+    lies within (count + 1) unit roundoffs of the magnitudes' sum of the
+    exact one (count terms, then one rounding)."""
+    import torch
+    from raytracers_tpu_torch.grad.replay_bwd import slot_table
+    exact = slot_table(rec, cot_step, n_slots)
+    mag = slot_table(rec, cot_step, n_slots, absolute=True)
+    count = torch.zeros(n_slots, dtype=torch.float64, device=rec.device)
+    count.index_add_(0, rec.reshape(-1).clamp(min=0).long(),
+                     (rec.reshape(-1) >= 0).double())
+    return exact, mag, count
+
+
+class CheckedK2:
+    """K2 with each launch repeated by its plain version on the same inputs
+    on the card: per-ray outputs (cotangents of the rays or the carry, the
+    replayed colours) and, in a second kernel launch, the per-bounce
+    cotangents must be bit-equal; the slot table must lie within
+    ``_slot_bound`` of the float64 sum of the plain per-bounce cotangents,
+    since the kernel adds it with float32 atomics in no fixed order."""
+
+    def __init__(self, label: str):
+        from raytracers_tpu_torch.grad import replay_bwd as rb
+        self.rb, self.label = rb, label
+        self.checks = 0
+        self.max_abs_err = 0.0          # per-ray outputs and the table
+        self.table_err_share = 0.0      # largest error / its bound
+
+    def _equal(self, what, out, ref):
+        g = _first_diff(out, ref)
+        self.max_abs_err = max(self.max_abs_err, _abs_err(out, ref, False))
+        if g is not None:
+            raise SmokeError(f"{self.label}: K2 {what} differs first at ray "
+                             f"{g}: kernel {out[..., g].tolist()} plain "
+                             f"{ref[..., g].tolist()}")
+        self.checks += 1
+
+    def __call__(self, params, rec, pay, gcot, **kw):
+        import torch
+        rb = self.rb
+        out = rb.replay_bwd(params, rec, pay, gcot, **kw)
+        step_kw = dict(kw, reduce_slots=None)
+        ref_step, ref_ray, ref_fwd = rb.replay_bwd_reference(
+            params, rec, pay, gcot, **step_kw)
+        self._equal("ray cotangents", out[1], ref_ray)
+        if ref_fwd is not None:
+            self._equal("replayed colours", out[2], ref_fwd)
+        step, _, _ = rb.replay_bwd(params, rec, pay, gcot, **step_kw)
+        self._equal("per-bounce cotangents", step, ref_step)
+        n_slots = kw.get("reduce_slots")
+        if n_slots is not None:
+            exact, mag, count = _slot_bound(rec, ref_step, n_slots)
+            err = (out[0].double() - exact).abs()
+            bound = (count[:, None] + 1.0) * F32_EPS * mag
+            self.max_abs_err = max(self.max_abs_err, float(err.max()))
+            bad = (err > bound).nonzero()
+            if bad.numel():
+                s, f = (int(x) for x in bad[0])
+                raise SmokeError(
+                    f"{self.label}: K2 slot table [{s}, {f}] kernel "
+                    f"{float(out[0][s, f])} exact {float(exact[s, f])} "
+                    f"bound {float(bound[s, f])}")
+            share = err / torch.where(bound > 0, bound, 1.0)
+            self.table_err_share = max(self.table_err_share,
+                                       float(share.max()))
+            self.checks += 1
+        return out
 
 
 class Timed:
@@ -171,14 +276,17 @@ def phase_card_and_build() -> None:
     log(smi.stdout.strip())
     from raytracers_tpu_torch.render import _cuda
     t0 = time.perf_counter()
-    _cuda.load()
-    log(f"[build] K1 {_cuda.SOURCE.relative_to(ROOT)} -> "
-        f"{Path(_cuda.build_info['path']).relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc "
-        f"{_cuda.build_info['seconds']:.2f} s)")
-    for line in _cuda.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    _cuda.build_all()
+    log(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
+    for name in _cuda.KERNELS:
+        _cuda.load(name)
+        info = _cuda.build_info[name]
+        log(f"[build] {name}: {_cuda.source(name).relative_to(ROOT)} -> "
+            f"{Path(info['path']).relative_to(ROOT)} (nvcc "
+            f"{info['seconds']:.2f} s)")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
 
 
 def _prepare(port, name: str, size: int):
@@ -224,6 +332,98 @@ def phase_kernel_vs_plain(port) -> dict:
             f"{schedule} prefixes {prefix}, K1c counters {two_stats['slot_tests']}"
             f" slot tests)")
         checkers[name] = chk
+    return checkers
+
+
+def _diff_scene(port, name: str, size: int):
+    """A scene's spheres and camera on the card, as a user of the fwd+bwd
+    engine passes them, and the engine's class config."""
+    from raytracers_tpu_torch.geometry import camera
+    from raytracers_tpu_torch.render.api import pallas_diff_config
+    from raytracers_tpu_torch.render.megakernel import build_pallas_scene
+    sc = port.scenes.by_name(name)
+    cam = camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov, 1.0)
+    layout = build_pallas_scene(sc.spheres)
+    return sc.spheres, cam, layout, pallas_diff_config(layout.n_clusters)
+
+
+def _grads(f, spheres, cam):
+    """One fwd+bwd step: loss = sum(f(spheres, cam) ** 2), backward; returns
+    the image and the gradients (centre, radius, colour, then the camera's
+    origin, llc, horizontal, vertical)."""
+    from raytracers_tpu_torch.geometry import Camera, Spheres
+    sph = Spheres(*(t.detach().requires_grad_(True) for t in spheres))
+    c = Camera(*(t.detach().requires_grad_(True) for t in cam))
+    img = f(sph, c)
+    (img * img).sum().backward()
+    return img.detach(), [t.grad for t in (*sph, *c)]
+
+
+def phase_diff_kernels_vs_plain(port) -> dict:
+    """K1d and K2 against their plain versions at CHECK_SIZE; returns the
+    checkers by scene."""
+    import torch
+    from raytracers_tpu_torch.grad import replay_bwd as rb
+    from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+    from raytracers_tpu_torch.render import megakernel as mk
+    size = CHECK_SIZE
+    checkers = {}
+    for name in SCENES:
+        spheres, cam, ps, (tile, block, schedule, prefix) = _diff_scene(
+            port, name, size)
+        k1 = Checked(mk, f"{name} {size}x{size} K1d")
+        k2 = CheckedK2(f"{name} {size}x{size}")
+        # K1d single-phase, scanline and block, and multi-phase
+        cols = {}
+        for blk in (None, block):
+            cols[blk], _, rec, pay = mk.render_pallas_record(
+                ps, cam, size, size, max_depth=DEPTH, tile=tile,
+                with_pay=True, block=blk, kernel=k1)
+        k1.compare("block-tiled colours against scanline",
+                   cols[block].reshape(-1), cols[None].reshape(-1))
+        two, _ = mk.render_pallas_record_twophase(
+            ps, cam, size, size, max_depth=DEPTH, tile=tile, block=block,
+            schedule=schedule, sort_prefix=prefix, kernel=k1)
+        k1.compare("multi-phase colours against single-phase",
+                   two.reshape(-1), cols[block].reshape(-1))
+        # K2's replayed colours against K1d's, depth 50, block tiles
+        ro = mk._ray_order(cam, size, size, tile, block, 0.0, None, DEPTH)
+        gcot = torch.zeros(rb.N_GCOT, ro.n_rays, device=rec.device)
+        _, _, fwd = k2(ro.params, rec, pay, gcot, tile=tile,
+                       block_tiled=True, emit_fwd=True)
+        rep = mk._to_image(ro, fwd, size, size).permute(1, 2, 0)
+        k1.compare(f"K2 replayed colours against K1d's at depth {DEPTH}",
+                   rep.reshape(-1), cols[block].reshape(-1))
+        # the engine whole-path and at the class config, every launch of
+        # both kernels checked; the segmented gradient against the
+        # whole-path one within the slot tables' summation slack
+        whole = make_render_pallas_diff(size, size, max_depth=DEPTH,
+                                        tile=tile, block=block,
+                                        fwd_kernel=k1, bwd_kernel=k2)
+        seg = make_render_pallas_diff(size, size, max_depth=DEPTH, tile=tile,
+                                      block=block, schedule=schedule,
+                                      sort_prefix=prefix, fwd_kernel=k1,
+                                      bwd_kernel=k2)
+        img1, g1 = _grads(whole, spheres, cam)
+        img2, g2 = _grads(seg, spheres, cam)
+        k1.compare("segmented engine colours against whole-path",
+                   img2.reshape(-1), img1.reshape(-1))
+        for a, b in zip(g1, g2):
+            if not torch.isfinite(a).all() or a.abs().max() == 0:
+                raise SmokeError(f"{name}: a whole-path gradient is not "
+                                 "finite or is zero")
+            # per-ray cotangents are bit-equal; only the order of the slot
+            # tables' sums differs
+            rel = float((a - b).abs().max() / a.abs().max())
+            if rel > 1e-3:
+                raise SmokeError(f"{name}: segmented gradient differs from "
+                                 f"the whole-path one by {rel} of its max")
+        log(f"[kernel=plain] {name} {size}x{size}: K1d {k1.checks} and K2 "
+            f"{k2.checks} comparisons (records and pay bit-equal, per-ray "
+            f"cotangents and carries bit-equal, slot tables within "
+            f"{k2.table_err_share:.3f} of their bound; schedule {schedule} "
+            f"prefixes {prefix}; replayed colours bit-equal at d{DEPTH})")
+        checkers[name] = (k1, k2)
     return checkers
 
 
@@ -378,6 +578,304 @@ def phase_main_path(port, name: str, checker) -> dict:
     return res
 
 
+class Counted:
+    """K1d with its counters (K1c) on, keeping each launch's counter sums,
+    depth and number of bounce records: the work the bound counts."""
+
+    def __init__(self, mk):
+        self.mk = mk
+        self.launches = []
+
+    def __call__(self, *args, **kw):
+        out = self.mk.megakernel(*args, **dict(kw, with_stats=True))
+        rec = out[2]
+        self.launches.append(dict(self.mk._stats_dict(out[1]),
+                                  depth=rec.shape[0],
+                                  bounces=int((rec >= 0).sum()),
+                                  ends=int(((rec == -1) | (rec == -3)).sum()),
+                                  live=int((rec[0] != -2).sum())))
+        return out
+
+
+class Captured:
+    """K2, keeping each launch's inputs (for the library call's timing)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.fn(*args, **kw)
+
+
+class PlainK2:
+    """K2's plain version on the card, timed, summing per slot the float64
+    magnitudes and the number of the per-bounce cotangents (the scale of the
+    kernel's summation-order bound)."""
+
+    def __init__(self, n_slots: int, timed):
+        from raytracers_tpu_torch.grad import replay_bwd as rb
+        self.rb, self.n_slots, self.timed = rb, n_slots, timed
+        self.mag = self.count = 0.0
+
+    def _plain(self, params, rec, pay, gcot, **kw):
+        step, ray, fwd = self.rb.replay_bwd_reference(
+            params, rec, pay, gcot, **dict(kw, reduce_slots=None))
+        return step, self.rb.slot_table(rec, step, self.n_slots), ray, fwd
+
+    def __call__(self, params, rec, pay, gcot, **kw):
+        step, exact, ray, fwd = self.timed(self._plain, params, rec, pay,
+                                           gcot, **kw)
+        _, mag, count = _slot_bound(rec, step, self.n_slots)
+        self.mag = self.mag + mag
+        self.count = self.count + count
+        return exact.float(), ray, fwd
+
+
+def _k1d_bound(launches, n_rays: int):
+    """Least time of one step's K1d launches: K1's operation count from the
+    counters, or the bytes (ray state in and out of each phase, the records
+    and the pay at bounces) over HBM, whichever is larger."""
+    stats = {k: sum(l[k] for l in launches)
+             for k in ("slot_tests", "cull_rows", "ray_bounces")}
+    ops = (stats["slot_tests"] * OPS_PER_SLOT
+           + stats["cull_rows"] * OPS_PER_CULL_ROW
+           + stats["ray_bounces"] * OPS_PER_BOUNCE)
+    nbytes = (STATE_BYTES * n_rays * (2 * len(launches) - 1)
+              + sum(4 * l["depth"] * n_rays + PAY_BYTES * l["bounces"]
+                    for l in launches))
+    ops_ms = ops / FP32_LANE_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes")), stats
+
+
+def _k2_bound(launches, n_rays: int, n_slots: int):
+    """Least time of one step's K2 launches for the paths this run
+    recorded: the operations of each replayed step, or the bytes of each
+    input read once and each output written once, whichever is larger.
+    The bytes are the records up to each path's end, the pay at bounces,
+    the image cotangent and carry (12 rows), a continuation's start state
+    (9 rows), the ray cotangents or carry out (6 or 9 rows) and the slot
+    table.  K2's scratch (o, d, light of every step, written in pass 1 and
+    read back in pass 2) belongs to the design, not the function: its time
+    at the HBM rate is returned beside the bound."""
+    ops = sum(l["bounces"] * OPS_PER_K2_BOUNCE + l["ends"] * OPS_PER_K2_END
+              for l in launches)
+    nbytes = scratch = 0
+    for k, l in enumerate(launches):
+        steps = l["bounces"] + l["ends"]
+        rows_in, rows_out = (12, 6) if k == 0 else (12 + 9, 9)
+        nbytes += (4 * steps + PAY_BYTES * l["bounces"]
+                   + 4 * (rows_in + rows_out) * l["live"]
+                   + (4 + 4 * rows_out) * (n_rays - l["live"])
+                   + 4 * 7 * n_slots)
+        scratch += K2_SCRATCH_BYTES * steps
+    ops_ms = ops / FP32_LANE_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = ((ops_ms, "operations") if ops_ms >= bytes_ms
+             else (bytes_ms, "bytes"))
+    return bound, scratch / HBM_BYTES_PER_S * 1e3
+
+
+def _index_add_ms(captured, n_slots: int) -> float:
+    """The library call for K2's slot reduction: one ``index_add_`` of each
+    segment's per-bounce cotangents onto the slot table, timed with CUDA
+    events on the main path's inputs and summed over the segments.  Only
+    the bounce steps' rows are added (the others carry zeros, and sending
+    them to one slot would time the contention of that slot instead)."""
+    import torch
+    from raytracers_tpu_torch.grad import replay_bwd as rb
+    from raytracers_tpu_torch.utils.timing import cuda_ms
+    total = 0.0
+    for args, kw in captured.calls:
+        step, _, _ = rb.replay_bwd(*args, **dict(kw, reduce_slots=None))
+        ids = args[1].reshape(-1)
+        bnc = ids >= 0
+        src = step[:, :7].permute(0, 2, 1).reshape(-1, 7)[bnc].contiguous()
+        idx = ids[bnc].long()
+        del step
+        tab = torch.zeros(n_slots, 7, dtype=torch.float32, device=src.device)
+        total += cuda_ms(lambda: tab.index_add_(0, idx, src), warmup=1,
+                         runs=3)
+    return total
+
+
+def phase_fwdbwd(port, name: str) -> dict:
+    """The fwd+bwd main path at SIZE, depth DEPTH."""
+    import torch
+    from raytracers_tpu_torch.grad import replay_bwd as rb
+    from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+    from raytracers_tpu_torch.render import megakernel as mk
+    from raytracers_tpu_torch.utils.timing import cuda_ms
+    spheres, cam, ps, (tile, block, schedule, prefix) = _diff_scene(
+        port, name, SIZE)
+    n_phases = len(schedule) + 1
+    n_slots = ps.order.numel()
+    cfg = dict(max_depth=DEPTH, tile=tile, block=block, schedule=schedule,
+               sort_prefix=prefix)
+    f = make_render_pallas_diff(SIZE, SIZE, **cfg)
+    step = lambda: _grads(f, spheres, cam)                      # noqa: E731
+
+    step()                                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.megakernel.launches = rb.replay_bwd.launches = 0
+    img, grads = step()
+    torch.cuda.synchronize()
+    launches = (mk.megakernel.launches, rb.replay_bwd.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != (n_phases, n_phases):
+        raise SmokeError(f"{name}: one fwd+bwd step launched K1d and K2 "
+                         f"{launches} times, not {n_phases} each")
+    if img.shape != (SIZE, SIZE, 3) or not torch.isfinite(img).all():
+        raise SmokeError(f"{name}: image {tuple(img.shape)} not finite")
+    for g, what in zip(grads, ("centre", "radius", "colour", "origin",
+                               "llc", "horizontal", "vertical")):
+        if not torch.isfinite(g).all() or float(g.abs().max()) == 0.0:
+            raise SmokeError(f"{name}: the {what} gradient is not finite "
+                             "or is zero")
+
+    fwdbwd_ms = [cuda_ms(step, warmup=0, runs=FB_REPEATS) for _ in range(3)]
+    mean_ms = sum(fwdbwd_ms) / len(fwdbwd_ms)
+
+    t_k1d = Timed(mk.megakernel, n_phases)
+    t_k2 = Timed(rb.replay_bwd, n_phases)
+    f_timed = make_render_pallas_diff(SIZE, SIZE, fwd_kernel=t_k1d,
+                                      bwd_kernel=t_k2, **cfg)
+    for _ in range(FB_REPEATS):
+        _grads(f_timed, spheres, cam)
+    k1d_ms, k2_ms = t_k1d.phase_ms(), t_k2.phase_ms()[::-1]    # by segment
+
+    profiled = _device_profile(step)
+    if profiled is None:
+        log(f"[fwdbwd] {name}: torch.profiler saw no device kernels")
+
+    counted, captured = Counted(mk), Captured(rb.replay_bwd)
+    _grads(make_render_pallas_diff(SIZE, SIZE, fwd_kernel=counted,
+                                   bwd_kernel=captured, **cfg), spheres, cam)
+    n_rays = _n_rays(block)
+    (k1d_bound, k1d_by), stats = _k1d_bound(counted.launches, n_rays)
+    (k2_bound, k2_by), k2_scratch_ms = _k2_bound(counted.launches, n_rays,
+                                                 n_slots)
+    library_ms = _index_add_ms(captured, n_slots)
+    del captured
+
+    # the plain engine on the card: K1d's and K2's plain versions
+    p_k1d = Timed(mk.megakernel_reference, n_phases)
+    p_k2 = PlainK2(n_slots, Timed(lambda fn, *a, **kw: fn(*a, **kw),
+                                  n_phases))
+    f_plain = make_render_pallas_diff(SIZE, SIZE, fwd_kernel=p_k1d,
+                                      bwd_kernel=p_k2, **cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_p, grads_p = _grads(f_plain, spheres, cam)
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(img.view(torch.int32), img_p.view(torch.int32)):
+        raise SmokeError(f"{name}: the fwd+bwd image differs from the plain "
+                         "engine's")
+    # sphere gradients: the kernel's slot tables sum in no fixed order, the
+    # plain engine's in float64; per sphere they may differ by (count + 2
+    # segments + 2) unit roundoffs of the sum of magnitudes
+    ordv = ps.order.reshape(-1).long()
+    real = ordv >= 0
+    n_sph = spheres.center.shape[0]
+    f64 = dict(dtype=torch.float64, device=ordv.device)
+    mag = torch.zeros(n_sph, 7, **f64).index_add_(0, ordv[real],
+                                                  p_k2.mag[real])
+    count = torch.zeros(n_sph, **f64).index_add_(0, ordv[real],
+                                                 p_k2.count[real])
+    bound = (count[:, None] + 2 * n_phases + 2) * F32_EPS * mag
+    got = torch.cat([grads[0], grads[1][:, None], grads[2]], 1).double()
+    want = torch.cat([grads_p[0], grads_p[1][:, None], grads_p[2]],
+                     1).double()
+    sph_err = (got - want).abs()
+    if (sph_err > bound).any():
+        i = int((sph_err > bound).nonzero()[0, 0])
+        raise SmokeError(f"{name}: sphere {i}'s gradient {got[i].tolist()} "
+                         f"against the plain {want[i].tolist()}, bound "
+                         f"{bound[i].tolist()}")
+    cam_rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(grads[3:], grads_p[3:]))
+    if cam_rel > 1e-6:
+        raise SmokeError(f"{name}: the camera gradient differs from the "
+                         f"plain engine's by {cam_rel} of its max")
+    share = sph_err / torch.where(bound > 0, bound, 1.0)
+
+    res = dict(scene=name, clusters=ps.n_clusters, tile=tile, block=block,
+               schedule=schedule, sort_prefix=prefix,
+               fwdbwd_ms=fwdbwd_ms, fwdbwd_ms_mean=mean_ms,
+               k1d_launches=launches[0], k2_launches=launches[1],
+               k1d_phase_ms=k1d_ms, k2_segment_ms=k2_ms,
+               k1d_ms=sum(k1d_ms), k2_ms=sum(k2_ms),
+               glue_ms=mean_ms - sum(k1d_ms) - sum(k2_ms),
+               peak_memory_gib=peak_gib,
+               slot_tests=stats["slot_tests"],
+               ray_bounces=stats["ray_bounces"], cull_rows=stats["cull_rows"],
+               bounce_records=[l["bounces"] for l in counted.launches],
+               k1d_bound_ms=k1d_bound, k1d_bound_by=k1d_by,
+               k2_bound_ms=k2_bound, k2_bound_by=k2_by,
+               k2_scratch_bytes_ms=k2_scratch_ms,
+               k2_library_ms=library_ms,
+               plain_k1d_ms=sum(p_k1d.phase_ms()),
+               plain_k2_ms=sum(p_k2.timed.phase_ms()),
+               plain_step_ms=plain_step_ms,
+               grad_max_abs=[float(g.abs().max()) for g in grads],
+               sphere_grad_max_abs_err=float(sph_err.max()),
+               sphere_grad_rel_err=float(sph_err.max() / want.abs().max()),
+               sphere_grad_err_share_of_bound=float(share.max()),
+               camera_grad_rel_err=cam_rel,
+               loss=float((img * img).sum()), profile=profiled)
+    log(f"[fwdbwd] {json.dumps(res)}")
+    return res
+
+
+def _n_rays(block) -> int:
+    return (-(-SIZE // block[0]) * block[0]) * (-(-SIZE // block[1])
+                                                * block[1])
+
+
+def _kernels_record(checkers, diff_checkers, results, fb_results) -> list:
+    """One entry per kernel and scene: K1 from the render main path, K1d
+    and K2 from the fwd+bwd main path; ``max_abs_err`` from the kernel
+    against plain checks (K2's includes its slot tables)."""
+    from raytracers_tpu_torch.render import _cuda
+    src = {k: str(_cuda.source(k).relative_to(ROOT)) for k in _cuda.KERNELS}
+    where = f"{SIZE}x{SIZE} d{DEPTH}"
+    out = []
+    for r in results:
+        out.append(dict(
+            name=f"K1 megakernel ({r['scene']} {where})", route="cuda",
+            source=src["megakernel"],
+            replaces="raytracers_tpu/render/pallas_kernel.py:319",
+            launches=r["k1_launches"],
+            max_abs_err=checkers[r["scene"]].max_abs_err,
+            ms=r["k1_ms"], plain_ms=r["plain_k1_ms"],
+            bound_ms=r["k1_bound_ms"], bound_by=r["k1_bound_by"],
+            library_ms=None))
+    for r in fb_results:
+        k1, k2 = diff_checkers[r["scene"]]
+        out.append(dict(
+            name=f"K1d megakernel record ({r['scene']} fwd+bwd {where})",
+            route="cuda", source=src["megakernel"],
+            replaces="raytracers_tpu/render/pallas_kernel.py:934",
+            launches=r["k1d_launches"], max_abs_err=k1.max_abs_err,
+            ms=r["k1d_ms"], plain_ms=r["plain_k1d_ms"],
+            bound_ms=r["k1d_bound_ms"], bound_by=r["k1d_bound_by"],
+            library_ms=None))
+        out.append(dict(
+            name=f"K2 replay_bwd ({r['scene']} fwd+bwd {where})",
+            route="cuda", source=src["replay_bwd"],
+            replaces="raytracers_tpu/grad/pallas_replay_bwd.py:104",
+            launches=r["k2_launches"], max_abs_err=k2.max_abs_err,
+            table_err_share_of_bound=k2.table_err_share,
+            ms=r["k2_ms"], plain_ms=r["plain_k2_ms"],
+            bound_ms=r["k2_bound_ms"], bound_by=r["k2_bound_by"],
+            library_ms=r["k2_library_ms"]))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -392,23 +890,16 @@ def main() -> int:
         port = load_port()
         phase_card_and_build()
         checkers = phase_kernel_vs_plain(port)
+        diff_checkers = phase_diff_kernels_vs_plain(port)
         phase_goldens(port)
         results = [phase_main_path(port, name, checkers[name])
                    for name in SCENES]
+        fb_results = [phase_fwdbwd(port, name) for name in SCENES]
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    from raytracers_tpu_torch.render import _cuda
-    kernels = [dict(
-        name=f"K1 megakernel ({r['scene']} {SIZE}x{SIZE} d{DEPTH})",
-        route="cuda",
-        source=str(_cuda.SOURCE.relative_to(ROOT)),
-        replaces="raytracers_tpu/render/pallas_kernel.py:319",
-        launches=r["k1_launches"],
-        max_abs_err=checkers[r["scene"]].max_abs_err,
-        ms=r["k1_ms"], plain_ms=r["plain_k1_ms"], bound_ms=r["k1_bound_ms"],
-        bound_by=r["k1_bound_by"], library_ms=None) for r in results]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": _kernels_record(checkers, diff_checkers,
+                                                 results, fb_results)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,29 +25,36 @@
 // are bound by that thread's instruction latency instead (PERF.md).
 //
 // Arithmetic contract (bit-equal to the plain version, which the tests hold
-// against the JAX package):
-//   * build with -fmad=false and without --use_fast_math: no multiply-add is
-//     contracted, sqrtf and division are IEEE (-prec-sqrt/-prec-div);
-//   * rsqrt(a) of the TPU shading is 1.0f / sqrtf(a);
+// against the JAX package): that of ray_math.cuh, which K2 shares, plus
 //   * min/max propagate NaN as XLA's do (a NaN slab stage keeps a cluster);
 //   * the key is (bits(m) & ~0x7F) | lane with m = a*t, clusters are swept in
 //     array order and the winner moves only on a strictly smaller key.
 //
+// Record mode (K1d, pallas_kernel.py:934-1015) adds, per step of a segment of
+// static depth D, the winner's slot cluster*128 + lane for a mirror bounce,
+// -1 for a miss, -3 for an absorbed hit and -2 for the steps after the ray's
+// death; with pay, the bounce winner's 7 fields.  The forward arithmetic is
+// unchanged: the records are written beside it.
+//
 // Layouts: params (24,) f32; sphT (C,128,8) f32 rows cx cy cz rad cr cg cb r2;
 // aabbT rows of 8 (mnx mny mnz mxx mxy mxz pad pad), the first C used; state
 // (13,n) f32 rows ox oy oz dx dy dz lr lg lb rr rg rb active; packed (n,)
-// int32; stats (3,n) int32 rows sphere rows tested, bounces, AABB slab rows.
+// int32; stats (3,n) int32 rows sphere rows tested, bounces, AABB slab rows;
+// rec (D,n) int32; pay (D,8,n) f32 rows cx cy cz rad cr cg cb, written only
+// where rec >= 0 (row 7 never).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_math.cuh"
+
 namespace {
 
-constexpr int kLane = 128;
+using rt::kBig;
+using rt::kKeyMask;
+using rt::kLane;
 constexpr int kMaxClusters = 128;
 constexpr int kThreads = 128;
-constexpr int kKeyMask = ~(kLane - 1);
-constexpr float kBig = 1e9f;      // T_MAX
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -62,7 +69,9 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
            const float* __restrict__ aabbT, int n_clusters, int tail_rows,
            int cull, int occl, const float* __restrict__ state_in,
            float* __restrict__ state_out, int* __restrict__ packed_out,
-           int* __restrict__ stats_out, int n, int tile, int block_tiled) {
+           int* __restrict__ stats_out, int* __restrict__ rec_out,
+           float* __restrict__ pay_out, int rec_depth, int n, int tile,
+           int block_tiled) {
   __shared__ float box[6][kMaxClusters];
   const int C = n_clusters;
   for (int k = threadIdx.x; k < 6 * C; k += blockDim.x)
@@ -74,24 +83,7 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
 
   float ox, oy, oz, dx, dy, dz, lr, lg, lb, rr, rg, rb, act;
   if (state_in == nullptr) {
-    // ray generation (pallas_kernel.py:379-431): exact integer div/mod
-    int i, j;
-    if (block_tiled) {
-      const int bpr = (int)params[20], bw = (int)params[21];
-      const int bh = (int)params[22];
-      const int pid = g / tile, lid = g % tile;
-      i = (pid % bpr) * bw + lid % bw;
-      j = (pid / bpr) * bh + lid / bw;
-    } else {
-      const int w = (int)params[16];
-      i = g % w;
-      j = g / w;
-    }
-    const float u = (float)i * params[18];
-    const float v = (params[17] - ((float)j + params[12])) * params[19];
-    dx = ((params[0] + u * params[3]) + v * params[6]) - params[9];
-    dy = ((params[1] + u * params[4]) + v * params[7]) - params[10];
-    dz = ((params[2] + u * params[5]) + v * params[8]) - params[11];
+    rt::primary_ray(params, g, tile, block_tiled, dx, dy, dz);
     ox = params[9];
     oy = params[10];
     oz = params[11];
@@ -107,11 +99,13 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
     act = state_in[12 * n + g];
   }
 
-  const int max_depth = (int)params[13];
+  // a record's depth is the static depth of its segment (K1d)
+  const int max_depth = rec_out != nullptr ? rec_depth : (int)params[13];
   int n_slots = 0, n_bounces = 0, n_cull = 0;
-  for (int depth = 0; depth < max_depth && act > 0.0f; ++depth) {
+  int depth = 0;
+  for (; depth < max_depth && act > 0.0f; ++depth) {
     const float a = (dx * dx + dy * dy) + dz * dz;
-    const float epsa = 0.1f * a;
+    const float epsa = rt::kEps * a;
     const float inv_dx = 1.0f / dx, inv_dy = 1.0f / dy, inv_dz = 1.0f / dz;
 
     // closest hit: culled packed-key sweep (pallas_kernel.py:481-864)
@@ -139,14 +133,10 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
       for (int l = 0; l < rows; ++l) {
         const float4 q = __ldg(reinterpret_cast<const float4*>(s + 8 * l));
         const float r2 = __ldg(s + 8 * l + 7);
-        const float ocx = ox - q.x, ocy = oy - q.y, ocz = oz - q.z;
-        const float b = (ocx * dx + ocy * dy) + ocz * dz;
-        const float cc = ((ocx * ocx + ocy * ocy) + ocz * ocz) - r2;
-        const float disc = b * b - a * cc;
-        const float sq = sqrtf(disc);           // NaN on a miss: masked below
-        const float m0 = -b - sq;
-        const float m = (m0 > epsa) ? m0 : (-b + sq);
-        const float tv = (disc > 0.0f && m > epsa) ? m : kBig;
+        const rt::Quad qd = rt::quad(ox, oy, oz, dx, dy, dz, a, q.x, q.y,
+                                     q.z, r2);
+        // sqrtf is NaN on a miss, which search_m masks
+        const float tv = rt::search_m(qd, sqrtf(qd.disc), epsa);
         kmin = min(kmin, (__float_as_int(tv) & kKeyMask) | l);
       }
       n_slots += rows;
@@ -159,48 +149,48 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
     ++n_bounces;
 
     // shading (pallas_kernel.py:866-983)
-    const float inv_dn = 1.0f / sqrtf(a);
-    const float uy = dy * inv_dn;
     if (krun >= (__float_as_int(kBig) & kKeyMask)) {     // miss: sky
+      const float uy = dy * (1.0f / sqrtf(a));
       const float t = 0.5f * (uy + 1.0f);
-      rr = lr * ((1.0f - t) + t * 0.5f);
-      rg = lg * ((1.0f - t) + t * 0.7f);
-      rb = lb * ((1.0f - t) + t * 1.0f);
+      rr = lr * rt::sky(t, rt::kSkyR);
+      rg = lg * rt::sky(t, rt::kSkyG);
+      rb = lb * rt::sky(t, rt::kSkyB);
       act = 0.0f;
+      if (rec_out != nullptr) rec_out[(size_t)depth * n + g] = -1;
       continue;
     }
-    const float* w = sphT + ((size_t)wcl * kLane + (krun & (kLane - 1))) * 8;
+    const int lane = krun & (kLane - 1);
+    const float* w = sphT + ((size_t)wcl * kLane + lane) * 8;
     const float4 s0 = __ldg(reinterpret_cast<const float4*>(w));
     const float4 s1 = __ldg(reinterpret_cast<const float4*>(w + 4));
-    const float ocx = ox - s0.x, ocy = oy - s0.y, ocz = oz - s0.z;
-    const float b = (ocx * dx + ocy * dy) + ocz * dz;
-    const float cc = ((ocx * ocx + ocy * ocy) + ocz * ocz) - s0.w * s0.w;
-    const float disc = b * b - a * cc;
-    const float sq = sqrtf(disc > 0.0f ? disc : 1.0f);
-    const float inv_a = 1.0f / a;
-    const float t0 = (-b - sq) * inv_a;
-    const float t1 = (-b + sq) * inv_a;
-    const float w_hi = __int_as_float(krun & kKeyMask) * inv_a + 1.0f;
-    const float t2 = (t0 < w_hi && t0 > 0.0f) ? t0 : t1;
-    const float px = ox + t2 * dx, py = oy + t2 * dy, pz = oz + t2 * dz;
-    const float inv_r = 1.0f / s0.w;
-    const float nx = (px - s0.x) * inv_r, ny = (py - s0.y) * inv_r;
-    const float nz = (pz - s0.z) * inv_r;
-    const float ux = dx * inv_dn, uz = dz * inv_dn;
-    const float udn = (ux * nx + uy * ny) + uz * nz;
-    const float rx = ux - (2.0f * udn) * nx;
-    const float ry = uy - (2.0f * udn) * ny;
-    const float rz = uz - (2.0f * udn) * nz;
-    if (((rx * nx + ry * ny) + rz * nz) > 0.0f) {       // mirror bounce
+    const rt::Bounce h = rt::bounce(ox, oy, oz, dx, dy, dz, a, s0.x, s0.y,
+                                    s0.z, s0.w, __int_as_float(krun & kKeyMask));
+    if (h.scatter) {                                     // mirror bounce
+      if (rec_out != nullptr) {
+        // K1d: the winner's slot, and with pay its 7 fields
+        rec_out[(size_t)depth * n + g] = wcl * kLane + lane;
+        if (pay_out != nullptr) {
+          float* pw = pay_out + (size_t)depth * 8 * n + g;
+          pw[0 * (size_t)n] = s0.x; pw[1 * (size_t)n] = s0.y;
+          pw[2 * (size_t)n] = s0.z; pw[3 * (size_t)n] = s0.w;
+          pw[4 * (size_t)n] = s1.x; pw[5 * (size_t)n] = s1.y;
+          pw[6 * (size_t)n] = s1.z;
+        }
+      }
       lr = lr * s1.x;
       lg = lg * s1.y;
       lb = lb * s1.z;
-      ox = px; oy = py; oz = pz;
-      dx = rx; dy = ry; dz = rz;
+      ox = h.px; oy = h.py; oz = h.pz;
+      dx = h.rx; dy = h.ry; dz = h.rz;
       act = 1.0f;
     } else {                                             // absorbed: black
+      if (rec_out != nullptr) rec_out[(size_t)depth * n + g] = -3;
       act = 0.0f;
     }
+  }
+  if (rec_out != nullptr) {
+    // the steps after the ray's death, up to the segment's depth: inactive
+    for (; depth < rec_depth; ++depth) rec_out[(size_t)depth * n + g] = -2;
   }
 
   if (state_out != nullptr) {
@@ -229,14 +219,16 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
 extern "C" int rt_megakernel_launch(
     const float* params, const float* sphT, const float* aabbT, int n_clusters,
     int tail_rows, int cull, int occl, const float* state_in, float* state_out,
-    int* packed_out, int* stats_out, int n, int tile, int block_tiled,
-    void* stream) {
-  if (n_clusters < 1 || n_clusters > kMaxClusters || n <= 0)
+    int* packed_out, int* stats_out, int* rec_out, float* pay_out,
+    int rec_depth, int n, int tile, int block_tiled, void* stream) {
+  if (n_clusters < 1 || n_clusters > kMaxClusters || n <= 0 ||
+      (rec_out != nullptr && rec_depth < 0))
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + kThreads - 1) / kThreads;
   megakernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       params, sphT, aabbT, n_clusters, tail_rows, cull, occl, state_in,
-      state_out, packed_out, stats_out, n, tile, block_tiled);
+      state_out, packed_out, stats_out, rec_out, pay_out, rec_depth, n, tile,
+      block_tiled);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,279 @@
+// K2, the backward replay of the differentiable renderer, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel
+// raytracers_tpu/grad/pallas_replay_bwd.py:_replay_bwd_kernel.  The forward
+// megakernel in record mode (K1d) leaves, per step and ray, the winner's
+// slot (or -1 miss, -2 inactive, -3 absorbed) and the winner's 7 fields.
+// This kernel differentiates the path each ray took, with the discrete
+// choices (which sphere, which root, scatter or not) held fixed:
+//   pass 1 replays o, d and light per step from the records into a global
+//          scratch (D, 9, n), stopping at the ray's own path length;
+//   pass 2 walks those steps deepest first, carrying the cotangents of
+//          (o, d, light): a miss seeds them from the image cotangent through
+//          the sky gradient, a bounce hand-reverses the shading chain
+//          (quadratic -> hit point -> normal -> reflection -> attenuation,
+//          futhark/ray.fut:76-117), an absorbed hit zeroes them.
+// Pass 1 recomputes each bounce with K1's own arithmetic (ray_math.cuh):
+// the key floor of the recomputed search value gives the same widened
+// window, so the replay is the path the forward took, bit for bit (the
+// argument of pallas_replay_bwd.py:26-37).  The cotangent arithmetic is the
+// TPU kernel's, expression for expression, without contraction.
+//
+// One thread owns one ray.  Each bounce's sphere cotangents (d/d cx cy cz
+// rad cr cg cb) are either written per step (D, 8, n) or added into a slot
+// table (S, 7) with float32 atomics, S = clusters * 128.  The TPU kernel
+// reduces with exact bf16 one-hot dots on its matrix unit over a sequential
+// grid; here blocks run in no order, so the table's summation order changes
+// from run to run: it is held to a tolerance, every per-ray output to bit
+// equality with the plain version (grad/replay_bwd.py).
+//
+// What bounds it on this card: its bytes.  Per replayed step a ray reads its
+// record (4 B) and the winner's fields (28 B) twice, writes and reads 36 B of
+// scratch, and does about 200 float32 lane operations; the operations'
+// time is the larger at the card's peak rates, but rays stop at their own
+// path lengths, so warps run as long as their longest path.  The simple
+// design keeps every per-step access coalesced (step-major layouts, one
+// thread per ray) and reads nothing of a step after the ray's death.
+//
+// Layouts (n rays): params (24,) f32 as K1's; rec (D,n) i32; pay (D,8,n)
+// f32, read only where rec >= 0; gcot (12,n) f32: rows 0-2 the image
+// cotangent, rows 3-11 the incoming carry (cotangents of o, d, light at the
+// end of this segment; zero for a whole path); state_in (9,n) f32 o, d,
+// light at the segment's start, or null for primary rays; scratch
+// (D,9,n) f32; cot_step (D,8,n) f32 pre-zeroed, or null; table (S,7) f32
+// pre-zeroed, or null; cotray (6,n) cotangents of each primary ray's o and
+// d, or with state_in (9,n) the carry at the segment's start; fwd (3,n)
+// the replayed colours, or null.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ray_math.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+struct Fields {
+  float cx, cy, cz, rad, cr, cg, cb;
+};
+
+__device__ __forceinline__ Fields load_fields(const float* __restrict__ pay,
+                                              int k, size_t n, int g) {
+  const float* p = pay + (size_t)k * 8 * n + g;
+  return Fields{p[0], p[n], p[2 * n], p[3 * n], p[4 * n], p[5 * n], p[6 * n]};
+}
+
+// The bounce K1 took at this step, recomputed from the winner's fields: the
+// search value's key floor sets the re-intersection window.
+__device__ __forceinline__ rt::Bounce replay_bounce(float ox, float oy,
+                                                    float oz, float dx,
+                                                    float dy, float dz,
+                                                    float a, const Fields& f) {
+  const rt::Quad q = rt::quad(ox, oy, oz, dx, dy, dz, a, f.cx, f.cy, f.cz,
+                              f.rad * f.rad);
+  const float sq = sqrtf(q.disc > 0.0f ? q.disc : 1.0f);
+  const float best_m = rt::key_floor(rt::search_m(q, sq, rt::kEps * a));
+  return rt::bounce(ox, oy, oz, dx, dy, dz, a, f.cx, f.cy, f.cz, f.rad,
+                    best_m);
+}
+
+__global__ void __launch_bounds__(kThreads)
+replay_bwd(const float* __restrict__ params, const int* __restrict__ rec,
+           const float* __restrict__ pay, const float* __restrict__ gcot,
+           const float* __restrict__ state_in, float* __restrict__ scratch,
+           float* __restrict__ cot_step, float* __restrict__ table,
+           float* __restrict__ cotray, float* __restrict__ fwd, int D, int n_,
+           int tile, int block_tiled) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n_) return;
+  const size_t n = n_;
+
+  // continuation gate: a ray inactive at the segment's start stays so
+  if (state_in != nullptr && rec[g] == -2) {
+    for (int r = 0; r < 9; ++r) cotray[r * n + g] = 0.0f;
+    if (fwd != nullptr)
+      for (int r = 0; r < 3; ++r) fwd[r * n + g] = 0.0f;
+    return;
+  }
+
+  float ox, oy, oz, dx, dy, dz, lr, lg, lb;
+  if (state_in == nullptr) {
+    rt::primary_ray(params, g, tile, block_tiled, dx, dy, dz);
+    ox = params[9];
+    oy = params[10];
+    oz = params[11];
+    lr = lg = lb = 1.0f;
+  } else {
+    ox = state_in[0 * n + g]; oy = state_in[1 * n + g];
+    oz = state_in[2 * n + g]; dx = state_in[3 * n + g];
+    dy = state_in[4 * n + g]; dz = state_in[5 * n + g];
+    lr = state_in[6 * n + g]; lg = state_in[7 * n + g];
+    lb = state_in[8 * n + g];
+  }
+
+  // ---- pass 1: replay the path, keeping o, d, light of every step ----
+  float rr = 0.0f, rg = 0.0f, rb = 0.0f;
+  int L = 0;                                   // the ray's recorded steps
+  for (; L < D; ++L) {
+    const int e = rec[(size_t)L * n + g];
+    if (e == -2) break;
+    float* s = scratch + (size_t)L * 9 * n + g;
+    s[0 * n] = ox; s[1 * n] = oy; s[2 * n] = oz;
+    s[3 * n] = dx; s[4 * n] = dy; s[5 * n] = dz;
+    s[6 * n] = lr; s[7 * n] = lg; s[8 * n] = lb;
+    const float a = (dx * dx + dy * dy) + dz * dz;
+    if (e < 0) {                               // the path ends here
+      if (e == -1) {                           // miss: the sky
+        const float t = 0.5f * (dy * (1.0f / sqrtf(a)) + 1.0f);
+        rr = lr * rt::sky(t, rt::kSkyR);
+        rg = lg * rt::sky(t, rt::kSkyG);
+        rb = lb * rt::sky(t, rt::kSkyB);
+      }
+      ++L;
+      break;
+    }
+    const Fields f = load_fields(pay, L, n, g);
+    const rt::Bounce h = replay_bounce(ox, oy, oz, dx, dy, dz, a, f);
+    ox = h.px; oy = h.py; oz = h.pz;
+    dx = h.rx; dy = h.ry; dz = h.rz;
+    lr = lr * f.cr; lg = lg * f.cg; lb = lb * f.cb;
+  }
+  if (fwd != nullptr) {
+    fwd[0 * n + g] = rr;
+    fwd[1 * n + g] = rg;
+    fwd[2 * n + g] = rb;
+  }
+
+  // ---- pass 2: the cotangent sweep, deepest step first ----
+  const float gr = gcot[0 * n + g], gg = gcot[1 * n + g],
+              gb = gcot[2 * n + g];
+  float cox = gcot[3 * n + g], coy = gcot[4 * n + g], coz = gcot[5 * n + g];
+  float cdx = gcot[6 * n + g], cdy = gcot[7 * n + g], cdz = gcot[8 * n + g];
+  float clr = gcot[9 * n + g], clg = gcot[10 * n + g],
+        clb = gcot[11 * n + g];
+  for (int k = L - 1; k >= 0; --k) {
+    const int e = rec[(size_t)k * n + g];
+    const float* s = scratch + (size_t)k * 9 * n + g;
+    const float ox = s[0 * n], oy = s[1 * n], oz = s[2 * n];
+    const float dx = s[3 * n], dy = s[4 * n], dz = s[5 * n];
+    const float lr = s[6 * n], lg = s[7 * n], lb = s[8 * n];
+    const float a = (dx * dx + dy * dy) + dz * dz;
+    if (e == -3) {                             // absorbed: black
+      cox = coy = coz = cdx = cdy = cdz = clr = clg = clb = 0.0f;
+      continue;
+    }
+    if (e == -1) {                             // miss: seed from the sky
+      const float inv_len = 1.0f / sqrtf(a);
+      const float ux = dx * inv_len, uy = dy * inv_len, uz = dz * inv_len;
+      const float t = 0.5f * (uy + 1.0f);
+      clr = rt::sky(t, rt::kSkyR) * gr;
+      clg = rt::sky(t, rt::kSkyG) * gg;
+      clb = rt::sky(t, rt::kSkyB) * gb;
+      const float cot_t = ((lr * gr) * rt::kSkyRm1 + (lg * gg) * rt::kSkyGm1)
+                          + (lb * gb) * rt::kSkyBm1;
+      const float cuy = 0.5f * cot_t;
+      const float udotcu = uy * cuy;
+      cox = coy = coz = 0.0f;
+      cdx = ((-ux) * udotcu) * inv_len;
+      cdy = (cuy - uy * udotcu) * inv_len;
+      cdz = ((-uz) * udotcu) * inv_len;
+      continue;
+    }
+    // a mirror bounce (pallas_replay_bwd.py:277-358)
+    const Fields f = load_fields(pay, k, n, g);
+    const rt::Bounce h = replay_bounce(ox, oy, oz, dx, dy, dz, a, f);
+    const float inv_len = h.inv_dn;
+    // light' = light * colour
+    const float ccolr = lr * clr, ccolg = lg * clg, ccolb = lb * clb;
+    const float nlr = f.cr * clr, nlg = f.cg * clg, nlb = f.cb * clb;
+    // d' = u - 2 (u.n) n ; o' = p
+    const float ndotcr = (h.nx * cdx + h.ny * cdy) + h.nz * cdz;
+    const float cux = cdx - (2.0f * h.nx) * ndotcr;
+    const float cuy = cdy - (2.0f * h.ny) * ndotcr;
+    const float cuz = cdz - (2.0f * h.nz) * ndotcr;
+    const float cnx = -2.0f * (h.ux * ndotcr + h.udn * cdx);
+    const float cny = -2.0f * (h.uy * ndotcr + h.udn * cdy);
+    const float cnz = -2.0f * (h.uz * ndotcr + h.udn * cdz);
+    // n = (p - c) / r
+    const float cpx = cox + cnx * h.inv_r;
+    const float cpy = coy + cny * h.inv_r;
+    const float cpz = coz + cnz * h.inv_r;
+    float ccx = (-cnx) * h.inv_r, ccy = (-cny) * h.inv_r,
+          ccz = (-cnz) * h.inv_r;
+    float crad = (-((h.nx * cnx + h.ny * cny) + h.nz * cnz)) * h.inv_r;
+    // u = d / |d|
+    const float udotcu = (h.ux * cux + h.uy * cuy) + h.uz * cuz;
+    float ndx = (cux - h.ux * udotcu) * inv_len;
+    float ndy = (cuy - h.uy * udotcu) * inv_len;
+    float ndz = (cuz - h.uz * udotcu) * inv_len;
+    // p = o + t2 d
+    ndx = ndx + h.t2 * cpx;
+    ndy = ndy + h.t2 * cpy;
+    ndz = ndz + h.t2 * cpz;
+    const float ct2 = (dx * cpx + dy * cpy) + dz * cpz;
+    // t2 = (-b + s sq) / a, s = -1 for the near root, +1 for the far one
+    const float sgn = h.near ? -1.0f : 1.0f;
+    float cb2 = (-h.inv_a) * ct2;
+    const float csq = (sgn * h.inv_a) * ct2;
+    float ca = ((-h.t2) * h.inv_a) * ct2;
+    const float cdisc = csq * (0.5f / h.sq);
+    cb2 = cb2 + (2.0f * h.q.b) * cdisc;
+    ca = ca - h.q.c * cdisc;
+    const float cc2 = (-a) * cdisc;
+    // b = oc.d ; c = oc.oc - r^2 ; a = d.d ; oc = o - c
+    const float cocx = cb2 * dx + (2.0f * cc2) * h.q.ocx;
+    const float cocy = cb2 * dy + (2.0f * cc2) * h.q.ocy;
+    const float cocz = cb2 * dz + (2.0f * cc2) * h.q.ocz;
+    ndx = (ndx + cb2 * h.q.ocx) + (2.0f * ca) * dx;
+    ndy = (ndy + cb2 * h.q.ocy) + (2.0f * ca) * dy;
+    ndz = (ndz + cb2 * h.q.ocz) + (2.0f * ca) * dz;
+    crad = crad - (2.0f * f.rad) * cc2;
+    ccx = ccx - cocx;
+    ccy = ccy - cocy;
+    ccz = ccz - cocz;
+
+    const float cot[7] = {ccx, ccy, ccz, crad, ccolr, ccolg, ccolb};
+    if (cot_step != nullptr) {
+      float* c = cot_step + (size_t)k * 8 * n + g;
+#pragma unroll
+      for (int r = 0; r < 7; ++r) c[r * n] = cot[r];
+    }
+    if (table != nullptr) {
+      float* row = table + (size_t)e * 7;
+#pragma unroll
+      for (int r = 0; r < 7; ++r) atomicAdd(row + r, cot[r]);
+    }
+    cox = cpx + cocx; coy = cpy + cocy; coz = cpz + cocz;
+    cdx = ndx; cdy = ndy; cdz = ndz;
+    clr = nlr; clg = nlg; clb = nlb;
+  }
+
+  cotray[0 * n + g] = cox; cotray[1 * n + g] = coy;
+  cotray[2 * n + g] = coz; cotray[3 * n + g] = cdx;
+  cotray[4 * n + g] = cdy; cotray[5 * n + g] = cdz;
+  if (state_in != nullptr) {
+    cotray[6 * n + g] = clr;
+    cotray[7 * n + g] = clg;
+    cotray[8 * n + g] = clb;
+  }
+}
+
+}  // namespace
+
+extern "C" int rt_replay_bwd_launch(
+    const float* params, const int* rec, const float* pay, const float* gcot,
+    const float* state_in, float* scratch, float* cot_step, float* table,
+    float* cotray, float* fwd, int depth, int n, int tile, int block_tiled,
+    void* stream) {
+  if (n <= 0 || depth < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  replay_bwd<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      params, rec, pay, gcot, state_in, scratch, cot_step, table, cotray, fwd,
+      depth, n, tile, block_tiled);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* rt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -13,8 +13,8 @@ from ..scenes import Scene
 from ..utils.platform import resolve_device
 from . import bruteforce
 from .megakernel import (PallasScene, build_pallas_scene, render_pallas,
-                         render_pallas_twophase)
-from .tracer import render_packed
+                         render_pallas_record, render_pallas_twophase)
+from .tracer import render_colours, render_packed
 
 _NO_BVH = ("the BVH path (build_bvh, mode='bvh') is not ported yet "
            "(ROADMAP queue 1, item 12); use with_bvh=False")
@@ -51,6 +51,15 @@ def pallas_config(C: int):
     sort_prefix), the values of the JAX package's ``pallas_config``."""
     if C > 128:
         return 2048, (8, 256), (2, 3, 6), (None, 0.25, 0.12)
+    if C <= 16:
+        return 2048, (64, 32), (3, 4, 8), (None, 0.5, 0.25)
+    return 2048, (32, 64), (3, 6), (None, 0.25)
+
+
+def pallas_diff_config(C: int):
+    """Fwd+bwd engine config by scene class: (tile, block, schedule,
+    sort_prefix) for ``grad.pallas_diff.make_render_pallas_diff``, the
+    values of the JAX package's ``pallas_diff_config``."""
     if C <= 16:
         return 2048, (64, 32), (3, 4, 8), (None, 0.5, 0.25)
     return 2048, (32, 64), (3, 6), (None, 0.25)
@@ -101,3 +110,28 @@ def render_stats(prepared: PreparedScene, height: int, width: int,
     per-phase lists of a multi-phase render.  The counters are the port's
     own (per ray, what its kernel executes), not the TPU's per-tile ones."""
     return _render_pallas(prepared, height, width, max_depth, True)[1]
+
+
+def render_float(prepared: PreparedScene, height: int, width: int,
+                 mode: str = "bvh", max_depth: int = MAX_DEPTH,
+                 chunk: int | None = None):
+    """Render to float colours (h, w, 3), the differentiable output.
+
+    ``mode="pallas"`` runs the megakernel in record mode (K1d), one launch
+    at the default tile, as the JAX package does; gradients through it come
+    from ``grad.pallas_diff.make_render_pallas_diff``.  ``mode="brute"`` is
+    the all-pairs tracer."""
+    if mode == "pallas":
+        if prepared.pallas is None:
+            raise ValueError("prepare_scene(..., with_pallas=True) required "
+                             "for mode='pallas'")
+        colours, _ = render_pallas_record(prepared.pallas, prepared.cam,
+                                          width, height, max_depth=max_depth)
+        return colours
+    if mode == "brute":
+        return render_colours(bruteforce.make_closest_hit(prepared.spheres),
+                              prepared.spheres, prepared.cam, width, height,
+                              max_depth, chunk)
+    if mode == "bvh":
+        raise NotImplementedError(_NO_BVH)
+    raise ValueError(f"unknown render mode: {mode}")

@@ -11,7 +11,11 @@ Counterpart of ``raytracers_tpu.render.pallas_kernel`` (the TPU kernel
   ``megakernel_reference``, the plain torch version with the same per-ray
   arithmetic;
 * ``render_pallas`` (one launch) and ``render_pallas_twophase`` (phases with
-  survivor-compaction sorts between them, then an unpermute sort) drive it.
+  survivor-compaction sorts between them, then an unpermute sort) drive it;
+* ``render_pallas_record`` and ``render_pallas_record_twophase`` drive its
+  record mode (K1d): float colours plus, per step, each ray's winner slot
+  and the winner's fields, which the backward replay (K2,
+  ``grad/replay_bwd.py``) differentiates.
 
 Arithmetic shared by the kernel and the plain version, and why:
 
@@ -23,7 +27,9 @@ Arithmetic shared by the kernel and the plain version, and why:
   one 2^-16 key-floor bucket (pallas_kernel.py:712-724);
 * ``rsqrt(a)`` of the TPU shading (pallas_kernel.py:920) is ``1/sqrt(a)``,
   two IEEE operations, as in the reference tracer's ``normalise``;
-* min/max propagate NaN as XLA's do, so a NaN slab stage keeps a cluster.
+* min/max propagate NaN as XLA's do, so a NaN slab stage keeps a cluster;
+* the visit's quadratic and the shading come from ``ray_math`` (the mirror
+  of ``csrc/ray_math.cuh``), which K2's plain version shares.
 
 ``tile`` and ``block`` keep their JAX meaning as ray-order parameters: they
 fix the padded ray count, the ray -> pixel map and the sort-prefix rounding,
@@ -41,6 +47,7 @@ import torch
 from ..bvh.lbvh import Clusters, build_clusters
 from ..geometry import MAX_DEPTH, SCENE_EPSILON, T_MAX, Camera, Spheres
 from ..vec import sqrt
+from .ray_math import bounce, quad, search_m, sky
 
 LANE = 128            # spheres per cluster
 DEFAULT_TILE = 512    # rays per tile of the ray order
@@ -278,17 +285,10 @@ def _closest_hit_reference(scene: PallasScene, cull: bool, occl: bool,
         else:
             idx = torch.arange(m, device=ox.device)
         s = sphT[c, :rows]                                   # (rows, 8)
-        ocx = ox[idx, None] - s[:, 0]
-        ocy = oy[idx, None] - s[:, 1]
-        ocz = oz[idx, None] - s[:, 2]
-        b = ocx * dx[idx, None] + ocy * dy[idx, None] + ocz * dz[idx, None]
-        cc = ocx * ocx + ocy * ocy + ocz * ocz - s[:, 7]
-        disc = b * b - a[idx, None] * cc
-        sq = sqrt(disc)
-        m0 = -b - sq
-        ea = epsa[idx, None]
-        mm = torch.where(m0 > ea, m0, -b + sq)
-        tv = torch.where((disc > 0.0) & (mm > ea), mm, _BIG)
+        q = quad(ox[idx, None], oy[idx, None], oz[idx, None],
+                 dx[idx, None], dy[idx, None], dz[idx, None], a[idx, None],
+                 s[:, 0], s[:, 1], s[:, 2], s[:, 7])
+        tv = search_m(q, sqrt(q.disc), epsa[idx, None])
         key = (tv.view(torch.int32) & _KEY_MASK) | lanes[:rows]
         kmin = key.amin(dim=1)
         cur = krun[idx]
@@ -302,7 +302,9 @@ def _closest_hit_reference(scene: PallasScene, cull: bool, occl: bool,
 def megakernel_reference(scene: PallasScene, params: torch.Tensor,
                          n_rays: int, tile: int, *, block_tiled: bool = False,
                          state_in: torch.Tensor | None = None,
-                         emit_state: bool = False, with_stats: bool = False):
+                         emit_state: bool = False, with_stats: bool = False,
+                         record_depth: int | None = None,
+                         record_pay: bool = False):
     """Plain torch version of K1, on any device, with the kernel's per-ray
     arithmetic: square roots correctly rounded through float64, no fused
     multiply-adds.  Bounces run over the live rays only and each cluster
@@ -310,12 +312,22 @@ def megakernel_reference(scene: PallasScene, params: torch.Tensor,
     ``megakernel``."""
     _check_supported(scene)
     cull, occl, tail_rows = _kernel_flags(scene)
+    dev = params.device
     S = (_gen_rays(params, n_rays, tile, block_tiled) if state_in is None
          else state_in.clone())
-    stats = torch.zeros(N_STATS, n_rays, dtype=torch.int32,
-                        device=params.device)
+    stats = torch.zeros(N_STATS, n_rays, dtype=torch.int32, device=dev)
     C = scene.n_clusters
-    for _ in range(int(params[13].item())):
+    rec = pay = None
+    if record_depth is not None:
+        depth_cap = record_depth
+        rec = torch.full((record_depth, n_rays), -2, dtype=torch.int32,
+                         device=dev)
+        if record_pay:
+            pay = torch.zeros(record_depth, 8, n_rays, dtype=torch.float32,
+                              device=dev)
+    else:
+        depth_cap = int(params[13].item())
+    for depth in range(depth_cap):
         live = (S[12] > 0.0).nonzero().squeeze(1)
         if live.numel() == 0:
             break
@@ -328,46 +340,37 @@ def megakernel_reference(scene: PallasScene, params: torch.Tensor,
         stats[2, live] += C if cull else 0
 
         hit = krun < _HIT_TH
-        w = scene.sphT[wcl, (krun & (LANE - 1)).long()]         # (m, 8)
+        lane = krun & (LANE - 1)
+        w = scene.sphT[wcl, lane.long()]                       # (m, 8)
         scx, scy, scz, srad, sr, sg, sb = w[:, :7].unbind(1)
-        ocx, ocy, ocz = ox - scx, oy - scy, oz - scz
-        b = ocx * dx + ocy * dy + ocz * dz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - srad * srad
-        disc = b * b - a * c
-        pos = disc > 0.0
-        sq = sqrt(torch.where(pos, disc, 1.0))
-        inv_a = 1.0 / a
-        t0 = (-b - sq) * inv_a
-        t1 = (-b + sq) * inv_a
-        w_hi = (krun & _KEY_MASK).view(torch.float32) * inv_a + 1.0
-        t2 = torch.where((t0 < w_hi) & (t0 > 0.0), t0, t1)
-        px, py, pz = ox + t2 * dx, oy + t2 * dy, oz + t2 * dz
-        inv_r = 1.0 / srad
-        nx, ny, nz = (px - scx) * inv_r, (py - scy) * inv_r, (pz - scz) * inv_r
-        inv_dn = 1.0 / sqrt(a)
-        ux, uy, uz = dx * inv_dn, dy * inv_dn, dz * inv_dn
-        udn = ux * nx + uy * ny + uz * nz
-        rx = ux - 2.0 * udn * nx
-        ry = uy - 2.0 * udn * ny
-        rz = uz - 2.0 * udn * nz
-        bounce = hit & ((rx * nx + ry * ny + rz * nz) > 0.0)
+        h = bounce(ox, oy, oz, dx, dy, dz, a, scx, scy, scz, srad,
+                   (krun & _KEY_MASK).view(torch.float32))
+        bnc = hit & h.scatter
         miss = ~hit
+        if rec is not None:
+            slot = (wcl * LANE + lane).to(torch.int32)
+            rec[depth, live] = torch.where(
+                miss, -1, torch.where(bnc, slot, -3)).to(torch.int32)
+            if pay is not None:
+                pay[depth][:7, live] = w[:, :7].T
 
-        tsky = 0.5 * (uy + 1.0)
-        S[9, live] = torch.where(miss, lr * ((1.0 - tsky) + tsky * 0.5), rr)
-        S[10, live] = torch.where(miss, lg * ((1.0 - tsky) + tsky * 0.7), rg)
-        S[11, live] = torch.where(miss, lb * ((1.0 - tsky) + tsky * 1.0), rb)
-        S[6, live] = torch.where(bounce, lr * sr, lr)
-        S[7, live] = torch.where(bounce, lg * sg, lg)
-        S[8, live] = torch.where(bounce, lb * sb, lb)
-        S[0, live] = torch.where(bounce, px, ox)
-        S[1, live] = torch.where(bounce, py, oy)
-        S[2, live] = torch.where(bounce, pz, oz)
-        S[3, live] = torch.where(bounce, rx, dx)
-        S[4, live] = torch.where(bounce, ry, dy)
-        S[5, live] = torch.where(bounce, rz, dz)
-        S[12, live] = bounce.to(torch.float32)
+        tsky = 0.5 * (h.uy + 1.0)
+        S[9, live] = torch.where(miss, lr * sky(tsky, 0.5), rr)
+        S[10, live] = torch.where(miss, lg * sky(tsky, 0.7), rg)
+        S[11, live] = torch.where(miss, lb * sky(tsky, 1.0), rb)
+        S[6, live] = torch.where(bnc, lr * sr, lr)
+        S[7, live] = torch.where(bnc, lg * sg, lg)
+        S[8, live] = torch.where(bnc, lb * sb, lb)
+        S[0, live] = torch.where(bnc, h.px, ox)
+        S[1, live] = torch.where(bnc, h.py, oy)
+        S[2, live] = torch.where(bnc, h.pz, oz)
+        S[3, live] = torch.where(bnc, h.rx, dx)
+        S[4, live] = torch.where(bnc, h.ry, dy)
+        S[5, live] = torch.where(bnc, h.rz, dz)
+        S[12, live] = bnc.to(torch.float32)
     out = S if emit_state else pack_pix(S[9], S[10], S[11])
+    if rec is not None:
+        return out, (stats if with_stats else None), rec, pay
     return out, (stats if with_stats else None)
 
 
@@ -384,8 +387,12 @@ def pack_pix(rr, rg, rb):
 
 
 def _check_launch(scene: PallasScene, params, n_rays, tile, block_tiled,
-                  state_in):
+                  state_in, record_depth=None, record_pay=False):
     dev = params.device
+    if record_pay and record_depth is None:
+        raise ValueError("record_pay needs record_depth")
+    if record_depth is not None and record_depth < 1:
+        raise ValueError(f"record_depth {record_depth} must be >= 1")
     _check_supported(scene)
     if (params.dtype != torch.float32 or params.shape != (24,)
             or not params.is_contiguous()):
@@ -414,7 +421,8 @@ def _check_launch(scene: PallasScene, params, n_rays, tile, block_tiled,
 def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
                tile: int, *, block_tiled: bool = False,
                state_in: torch.Tensor | None = None,
-               emit_state: bool = False, with_stats: bool = False):
+               emit_state: bool = False, with_stats: bool = False,
+               record_depth: int | None = None, record_pay: bool = False):
     """K1: trace ``n_rays`` rays until they die or reach the depth cap
     ``params[13]``.
 
@@ -425,18 +433,31 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
     int32 per-ray counters (K1c): sphere rows tested, bounces run, AABB
     slab rows tested.  Returns (out, stats or None).
 
+    ``record_depth=D`` (K1d) makes D the depth cap instead of ``params[13]``
+    and adds the path record: returns (out, stats, rec, pay) with ``rec``
+    (D, n_rays) int32, per step the winner slot ``cluster*128 + lane`` of a
+    mirror bounce, -1 a miss, -3 an absorbed hit, -2 a step after the ray's
+    death; with ``record_pay``, ``pay`` (D, 8, n_rays) float32 holds the
+    bounce winner's fields cx cy cz rad cr cg cb in rows 0-6.  ``pay`` is
+    defined only where ``rec >= 0`` (row 7 nowhere): the JAX kernel fills
+    the other rows with ones for its masked divisions (pallas_kernel.py:
+    998-1015); K2 reads pay only at bounces, so the kernel writes nothing
+    there.  Without ``record_pay`` it is None.
+
     A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
     kernel on the current stream, without synchronising, and counts the
     launch in ``megakernel.launches``."""
-    _check_launch(scene, params, n_rays, tile, block_tiled, state_in)
+    _check_launch(scene, params, n_rays, tile, block_tiled, state_in,
+                  record_depth, record_pay)
     if params.device.type == "cpu":
         return megakernel_reference(
             scene, params, n_rays, tile, block_tiled=block_tiled,
-            state_in=state_in, emit_state=emit_state, with_stats=with_stats)
+            state_in=state_in, emit_state=emit_state, with_stats=with_stats,
+            record_depth=record_depth, record_pay=record_pay)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
     from . import _cuda
-    fn = _cuda.load()
+    fn = _cuda.load("megakernel")
     dev = params.device
     cull, occl, tail_rows = _kernel_flags(scene)
     state_out = (torch.empty(N_STATE, n_rays, dtype=torch.float32, device=dev)
@@ -445,19 +466,31 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
               torch.empty(n_rays, dtype=torch.int32, device=dev))
     stats = (torch.empty(N_STATS, n_rays, dtype=torch.int32, device=dev)
              if with_stats else None)
+    rec = pay = None
+    if record_depth is not None:
+        rec = torch.empty(record_depth, n_rays, dtype=torch.int32, device=dev)
+        if record_pay:
+            pay = torch.empty(record_depth, 8, n_rays, dtype=torch.float32,
+                              device=dev)
 
-    def ptr(t):
-        return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-    rc = fn(ptr(params), ptr(scene.sphT), ptr(scene.aabbT),
+    rc = fn(_ptr(params), _ptr(scene.sphT), _ptr(scene.aabbT),
             scene.n_clusters, tail_rows, int(cull), int(occl),
-            ptr(state_in), ptr(state_out), ptr(packed), ptr(stats),
+            _ptr(state_in), _ptr(state_out), _ptr(packed), _ptr(stats),
+            _ptr(rec), _ptr(pay), record_depth or 0,
             n_rays, tile, int(block_tiled),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"megakernel launch failed: {_cuda.error_string(rc)}")
+        raise RuntimeError("megakernel launch failed: "
+                           + _cuda.error_string("megakernel", rc))
     megakernel.launches += 1
-    return (state_out if emit_state else packed), stats
+    out = state_out if emit_state else packed
+    if record_depth is not None:
+        return out, stats, rec, pay
+    return out, stats
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 megakernel.launches = 0
@@ -505,12 +538,16 @@ def _ray_order(cam: Camera, width, height, tile, block, row0, total_height,
 
 
 def _to_image(ro: _RayOrder, flat, width, height):
-    """Ray order -> (h, w) image (pallas_kernel.py:1121-1147)."""
+    """Ray order -> image: (..., n_rays) -> (..., h, w)
+    (pallas_kernel.py:1121-1147)."""
+    lead = flat.shape[:-1]
     if ro.block is None:
-        return flat[:width * height].reshape(height, width)
+        return flat[..., :width * height].reshape(*lead, height, width)
     (bh, bw), (hp, wp) = ro.block, ro.padded
-    return (flat.reshape(hp // bh, wp // bw, bh, bw).permute(0, 2, 1, 3)
-            .reshape(hp, wp)[:height, :width])
+    k = len(lead)
+    return (flat.reshape(*lead, hp // bh, wp // bw, bh, bw)
+            .permute(*range(k), k, k + 2, k + 1, k + 3)
+            .reshape(*lead, hp, wp)[..., :height, :width])
 
 
 def _count_sum(x: torch.Tensor) -> int:
@@ -637,3 +674,114 @@ def render_pallas_twophase(scene: PallasScene, cam: Camera, width: int,
     out.update({k: sum(p[k] for p in per)
                 for k in ("slot_tests", "ray_bounces", "cull_rows")})
     return img, out
+
+
+# ---------------------------------------------------------------------------
+# record renders (K1d)
+
+
+def render_pallas_record(scene: PallasScene, cam: Camera, width: int,
+                         height: int, max_depth: int = MAX_DEPTH,
+                         tile: int = DEFAULT_TILE, with_pay: bool = False,
+                         block: tuple | None = None,
+                         kernel: Callable = megakernel):
+    """Float colours and the per-bounce path record from one K1d launch
+    (pallas_kernel.py:1150-1224).
+
+    Returns (colours (h, w, 3) float32, record (max_depth, h*w) int32): per
+    step and pixel (row-major), the winner slot ``cluster*128 + lane`` of a
+    mirror bounce, -1 a miss, -2 inactive, -3 absorbed.  ``with_pay`` adds
+    the raw records in ray order, ``rec`` (D, n_rays) and ``pay``
+    (D, 8, n_rays), as ``megakernel`` returns them, for the backward
+    replay.  ``block`` and ``kernel`` as in ``render_pallas``."""
+    ro = _ray_order(cam, width, height, tile, block, 0.0, None, max_depth)
+    st, _, rec, pay = kernel(scene, ro.params, ro.n_rays, tile,
+                             block_tiled=block is not None, emit_state=True,
+                             record_depth=max_depth, record_pay=with_pay)
+    colours = _to_image(ro, st[9:12], width, height).permute(1, 2, 0)
+    record = _to_image(ro, rec, width, height).reshape(max_depth, -1)
+    if with_pay:
+        return colours.contiguous(), record, rec, pay
+    return colours.contiguous(), record
+
+
+def render_pallas_record_twophase(scene: PallasScene, cam: Camera,
+                                  width: int, height: int,
+                                  max_depth: int = MAX_DEPTH,
+                                  phase1_depth: int = 6,
+                                  tile: int = DEFAULT_TILE,
+                                  block: tuple | None = None,
+                                  schedule: tuple | None = None,
+                                  sort_prefix: tuple | None = None,
+                                  kernel: Callable = megakernel):
+    """Record-mode render with survivor compaction between phases
+    (pallas_kernel.py:1227-1380): ``render_pallas_twophase``'s schedule and
+    prefix sorts, accumulating float colours, with the records each
+    segment of the backward replay needs.
+
+    ``schedule`` gives the depth caps of all phases but the last (default
+    ``(phase1_depth,)``); segment k records ``depths[k]`` steps.  Returns
+    (colours (h, w, 3) float32, aux) with
+
+      recs[k] (D_k, n_rays) int32, pays[k] (D_k, 8, n_rays) float32
+          segment k's records, in segment k's ray order (segment 0 in the
+          scanline or block order, later ones compacted);
+      states[k] (9, n_rays) float32
+          o, d and light after boundary k, sorted into segment k+1's order
+          (rows 0-8 of the JAX package's ``states16``);
+      poskeys[k] (n_rays,) int32
+          ``(dead << 30) | position`` sorted by boundary k: the low bits are
+          each ray's position in segment k's order, so they invert the
+          boundary's permutation (the backward's carry hand-off);
+      schedule, sort_prefix_rows
+          the schedule and each boundary's sorted row count (None: all).
+
+    Boundary k sorts the key ``(dead << 30) | position`` of the first
+    ``sort_prefix[k]`` share of the rays (rounded to tiles) and leaves the
+    rest in place, which is exact for any survival rate.  Per-ray arithmetic
+    is the single-phase record's, so the colours are bit-identical to
+    ``render_pallas_record``'s."""
+    if schedule is None:
+        schedule = (phase1_depth,)
+    if sum(schedule) >= max_depth:
+        raise ValueError(f"schedule {schedule} must end before max_depth "
+                         f"{max_depth}")
+    ro = _ray_order(cam, width, height, tile, block, 0.0, None, 0)
+    Rp = ro.n_rays
+    dev = ro.params.device
+    prefs = _sort_prefixes(sort_prefix, len(schedule), Rp, tile)
+    depths = list(schedule) + [max_depth - sum(schedule)]
+    pos = torch.arange(Rp, dtype=torch.int32, device=dev)
+
+    recs, pays, states, poskeys = [], [], [], []
+    idx = pos                 # each ray's original id, in the current order
+    acc = state_in = None     # dead rays' colours (3, Rp); next phase's input
+    for k, depth in enumerate(depths):
+        st, _, rec, pay = kernel(scene, ro.params, Rp, tile,
+                                 block_tiled=(k == 0 and block is not None),
+                                 state_in=state_in, emit_state=True,
+                                 record_depth=depth, record_pay=True)
+        recs.append(rec)
+        pays.append(pay)
+        if k == len(schedule):
+            break
+        # a ray dies in one phase; continuations start from zeroed rr/rg/rb,
+        # so the sum takes each ray's colour from its phase exactly
+        acc = st[9:12] if acc is None else acc + st[9:12]
+        key = ((st[12] <= 0.0).to(torch.int32) << 30) | pos
+        perm = _bsort_perm(key, prefs[k])
+        key_sorted = key[perm]
+        poskeys.append(key_sorted)
+        acc = acc[:, perm]
+        idx = idx[perm]
+        states.append(st[:9, perm])
+        live = ((key_sorted >> 30) == 0).to(torch.float32)
+        state_in = torch.cat([states[-1], st.new_zeros(3, Rp), live[None]])
+    # the last phase's colours where its rays were live at entry, then back
+    # to ray order by sorting on the original ray id
+    merged = torch.where(state_in[12] > 0.0, st[9:12], acc)
+    col = merged[:, torch.sort(idx).indices]
+    colours = _to_image(ro, col, width, height).permute(1, 2, 0).contiguous()
+    return colours, dict(recs=recs, pays=pays, states=states,
+                         poskeys=poskeys, schedule=tuple(schedule),
+                         sort_prefix_rows=prefs)

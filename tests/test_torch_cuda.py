@@ -1,7 +1,8 @@
-"""K1's CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card: K1 (all
+modes, K1d's records included) and K2, the backward replay.
 
-These tests need an NVIDIA card and skip without one (K1 is a CUDA kernel
-and has no CPU mode; the plain version's tests against the JAX package run
+These tests need an NVIDIA card and skip without one (the kernels are CUDA
+and have no CPU mode; the plain versions' tests against the JAX package run
 everywhere).  On a machine with the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -14,11 +15,14 @@ import torch
 
 from raytracers_tpu_torch import geometry as tgeo
 from raytracers_tpu_torch import scenes as tscenes
+from raytracers_tpu_torch.grad import replay_bwd as trb
+from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
 from raytracers_tpu_torch.render import megakernel as tmk
-from raytracers_tpu_torch.render.api import pallas_config
+from raytracers_tpu_torch.render.api import pallas_config, pallas_diff_config
 
 pytestmark = pytest.mark.cuda
 SIZE = 64
+F32_EPS = 2.0 ** -24         # float32 unit roundoff
 
 
 @pytest.fixture
@@ -28,9 +32,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scene(name, device):
+def _scene(name, device, diff=False):
+    """The render's layout (clusters front to back from the camera) or,
+    with ``diff``, the fwd+bwd engine's (unsorted), and the camera."""
     sc = tscenes.by_name(name, device=device)
-    ps = tmk.build_pallas_scene(sc.spheres, sort_origin=sc.look_from)
+    ps = tmk.build_pallas_scene(sc.spheres,
+                                sort_origin=None if diff else sc.look_from)
     cam = tgeo.camera(sc.look_from, sc.look_at, (0., 1., 0.), sc.fov, 1.0,
                       device=device)
     return ps, cam
@@ -48,14 +55,22 @@ class _Both:
         self.launches = 0
 
     def __call__(self, *args, **kw):
-        out, stats = tmk.megakernel(*args, **kw)
-        ref, ref_stats = tmk.megakernel_reference(*args, **kw)
+        out = tmk.megakernel(*args, **kw)
+        ref = tmk.megakernel_reference(*args, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(_bits(out), _bits(ref))
-        if stats is not None:
-            assert torch.equal(stats, ref_stats)
+        assert torch.equal(_bits(out[0]), _bits(ref[0]))
+        if out[1] is not None:
+            assert torch.equal(out[1], ref[1])
+        if kw.get("record_depth") is not None:
+            assert torch.equal(out[2], ref[2])
+            if out[3] is not None:
+                # pay is defined only at bounces
+                bnc = out[2] >= 0
+                got, want = (_bits(p[:, :7].permute(1, 0, 2)[:, bnc])
+                             for p in (out[3], ref[3]))
+                assert torch.equal(got, want)
         self.launches += 1
-        return out, stats
+        return out
 
 
 @pytest.mark.parametrize("depth", [1, 50])
@@ -98,3 +113,110 @@ def test_launch_count_and_device_checks(cuda):
     with pytest.raises(ValueError, match="sphT"):
         tmk.megakernel(cpu_scene, params, SIZE * SIZE, 256)
     assert tmk.megakernel.launches == before + 2
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("name", ["rgbbox", "irreg"])
+def test_record_kernel_equals_plain(cuda, name, blocked):
+    """K1d: records, pay at bounces and state rows bit-equal, single- and
+    multi-phase; the multi-phase colours equal the single-phase ones."""
+    ps, cam = _scene(name, cuda, diff=True)
+    _, _, schedule, prefix = pallas_diff_config(ps.n_clusters)
+    block = (16, 16) if blocked else None
+    both = _Both()
+    one, _, _, _ = tmk.render_pallas_record(ps, cam, SIZE, SIZE,
+                                            max_depth=50, tile=256,
+                                            with_pay=True, block=block,
+                                            kernel=both)
+    two, aux = tmk.render_pallas_record_twophase(
+        ps, cam, SIZE, SIZE, max_depth=50, tile=256, block=block,
+        schedule=schedule, sort_prefix=prefix, kernel=both)
+    assert both.launches == 1 + len(schedule) + 1
+    assert torch.equal(_bits(one), _bits(two))
+    assert [r.shape[0] for r in aux["recs"]] == [
+        *schedule, 50 - sum(schedule)]
+
+
+class _BothK2:
+    """K2 with every launch repeated by the plain version: per-ray outputs
+    and per-bounce cotangents bit-equal; the slot table within the bound
+    of a float32 sum in any order.
+
+    The kernel adds each bounce into the table with float32 atomics, whose
+    order changes from run to run.  A float32 sum of k terms in any order
+    lies within about k unit roundoffs of the sum of their magnitudes from
+    the exact sum; the limit is (k + 1) * 2^-24 * sum|x| per slot, against
+    the float64 sum of the plain version's per-bounce cotangents."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, params, rec, pay, gcot, **kw):
+        out = trb.replay_bwd(params, rec, pay, gcot, **kw)
+        step_kw = dict(kw, reduce_slots=None)
+        ref_step, ref_ray, ref_fwd = trb.replay_bwd_reference(
+            params, rec, pay, gcot, **step_kw)
+        step, ray, fwd = trb.replay_bwd(params, rec, pay, gcot, **step_kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out[1]), _bits(ref_ray))
+        assert torch.equal(_bits(step), _bits(ref_step))
+        if ref_fwd is not None:
+            assert torch.equal(_bits(out[2]), _bits(ref_fwd))
+        S = kw.get("reduce_slots")
+        if S is not None:
+            exact = trb.slot_table(rec, ref_step, S)
+            mag = trb.slot_table(rec, ref_step, S, absolute=True)
+            ids = rec.reshape(-1)
+            count = torch.zeros(S, dtype=torch.float64, device=rec.device)
+            count.index_add_(0, ids.clamp(min=0).long(), (ids >= 0).double())
+            bound = (count[:, None] + 1.0) * F32_EPS * mag
+            assert ((out[0].double() - exact).abs() <= bound).all()
+        self.launches += 1
+        return out
+
+
+@pytest.mark.parametrize("name", ["rgbbox", "irreg"])
+def test_replay_kernel_equals_plain(cuda, name):
+    """K2 whole-path and segmented (continuations with the 9-row carry) at
+    the scene's pallas_diff_config, through the engine; the segmented
+    gradient agrees with the whole-path one up to the slot tables'
+    summation order."""
+    sc = tscenes.by_name(name, device=cuda)
+    cam = tgeo.camera(sc.look_from, sc.look_at, (0., 1., 0.), sc.fov, 1.0,
+                      device=cuda)
+    n_clusters = tmk.build_pallas_scene(sc.spheres).n_clusters
+    _, _, schedule, prefix = pallas_diff_config(n_clusters)
+    grads = []
+    for sched, pref in ((None, None), (schedule, prefix)):
+        both = _BothK2()
+        f = make_render_pallas_diff(SIZE, SIZE, max_depth=50, tile=256,
+                                    block=(16, 16), schedule=sched,
+                                    sort_prefix=pref, bwd_kernel=both)
+        leaves = [t.detach().requires_grad_(True) for t in (*sc.spheres,
+                                                            *cam)]
+        img = f(tgeo.Spheres(*leaves[:3]), tgeo.Camera(*leaves[3:]))
+        (img * img).sum().backward()
+        assert both.launches == (1 if sched is None else len(sched) + 1)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all() and a.abs().max() > 0
+        # per-ray cotangents are bit-equal; only the order of the slot
+        # tables' float32 sums differs
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()
+
+
+@pytest.mark.parametrize("name", ["rgbbox", "irreg"])
+def test_replayed_colours_equal_record_colours(cuda, name):
+    """K2's emit_fwd replays K1d's path bit for bit at depth 50."""
+    ps, cam = _scene(name, cuda, diff=True)
+    col, _, rec, pay = tmk.render_pallas_record(
+        ps, cam, SIZE, SIZE, max_depth=50, tile=256, with_pay=True,
+        block=(16, 16))
+    ro = tmk._ray_order(cam, SIZE, SIZE, 256, (16, 16), 0.0, None, 50)
+    gcot = torch.zeros(trb.N_GCOT, ro.n_rays, device=cuda)
+    before = trb.replay_bwd.launches
+    _, _, fwd = trb.replay_bwd(ro.params, rec, pay, gcot, tile=256,
+                               block_tiled=True, emit_fwd=True)
+    assert trb.replay_bwd.launches == before + 1
+    rep = tmk._to_image(ro, fwd, SIZE, SIZE).permute(1, 2, 0)
+    assert torch.equal(_bits(rep.contiguous()), _bits(col))
