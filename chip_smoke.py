@@ -18,19 +18,30 @@ a failed phase exits non-zero before the final line:
    prefixes (K1a with state out, then K1b continuations), all with the
    per-ray counters (K1c).  Every K1 launch is repeated by the plain version
    on the same inputs on the card, and the images, state rows and counters
-   must be bit-equal;
-3. K1d and K2 against their plain versions at 200x200, both scenes: record
-   renders single- and multi-phase, scanline and block (records, pay at
-   bounces, state rows bit-equal); the fwd+bwd engine whole-path and at the
-   scene's ``pallas_diff_config``, with every K2 launch repeated by the
+   must be bit-equal.  Then the scene-scale mode (K1e, the two-level cull)
+   the same way at SCALE_CHECK_SIZE: plane-100k (depth 1 and its class
+   schedule to depth 50) and the 1M-sphere soup (depth 1 and 5), and the
+   culled depth-1 images against unculled launches;
+3. K1d and K2 against their plain versions at 200x200, both scenes, and on
+   the 20k-sphere soup (C = 157, three cull blocks) at SOUP20K_CHECK_SIZE
+   and depth SOUP20K_DEPTH:
+   record renders single- and multi-phase, scanline and block (records, pay
+   at bounces, state rows bit-equal); the fwd+bwd engine whole-path and at
+   the scene's ``pallas_diff_config``, with every K2 launch repeated by the
    plain version (per-ray cotangents, carries and per-bounce cotangents
-   bit-equal; the slot table within its summation-order bound); the
-   replayed colours of K2 (``emit_fwd``) bit-equal to K1d's at depth 50;
+   bit-equal; the slot table within its summation-order bound, plus the
+   subnormals its float32 atomics flush); the replayed colours of K2
+   (``emit_fwd``) bit-equal to K1d's at the full depth;
 4. goldens: ``render(mode="pallas")`` at 200x200 against ``tests/golden``;
-5. main path, render: ``prepare_scene`` + ``render(mode="pallas")`` at
-   1000x1000, depth 50, for each scene: launches counted from zero around
-   one render, render times with CUDA events, per-phase K1 times, counters,
-   K1's bound, and the full-size image against the plain version;
+5. main path, render, for each cell: launches counted from zero around one
+   render, render times with CUDA events, per-phase K1 times, counters,
+   K1's bound, the warp lanes' share of the visit work, the image against
+   the plain version, and for the soup the render at twice the side.
+   rgbbox, irreg and plane-100k go through
+   ``prepare_scene`` + ``render(mode="pallas")`` at 1000x1000, depth 50;
+   the 1M-sphere soup through ``build_pallas_scene`` + ``render_pallas``
+   at 256x256, depth 5, tile 2048, blocks (8, 256), as ``bench.py``
+   renders it (the camera at (0, 0, 520) looking at the origin, fov 60);
 6. main path, fwd+bwd: ``make_render_pallas_diff`` at 1000x1000, depth 50,
    with the scene's ``pallas_diff_config``, then ``loss.backward()`` for
    ``loss = (f(spheres, cam) ** 2).sum()``: launches counted from zero
@@ -49,6 +60,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SCENES = ("rgbbox", "irreg")
@@ -56,6 +68,19 @@ SIZE, DEPTH = 1000, 50          # the main path's image and bounce cap
 CHECK_SIZE = 200                # phases 2 to 4
 REPEATS = 5                     # timed renders per scene
 FB_REPEATS = 3                  # timed fwd+bwd steps per round
+SCALE_CHECK_SIZE = 64           # K1e against its plain version (phase 2)
+# K1d and K2 at three cull blocks (phase 3), at a depth whose mirror
+# cascades keep the soup's gradients within float32 (~1e17 at depth 16)
+SOUP20K_CHECK_SIZE, SOUP20K_DEPTH = 128, 16
+# random sphere soups: (spheres, seed, extent, camera distance); the camera
+# looks at the origin, fov 60.  soup1m is bench.py:184-194's render.
+SOUPS = {"soup20k": (20_000, 5, 200.0, 260.0),
+         "soup1m": (1_000_000, 11, 400.0, 520.0)}
+# render cells of the main path: name -> (image side, depth)
+CELLS = {"rgbbox": (SIZE, DEPTH), "irreg": (SIZE, DEPTH),
+         "plane": (SIZE, DEPTH), "soup1m": (256, 5)}
+SOUP_CONFIG = (2048, (8, 256), (), None)    # bench.py's tile and blocks
+WARP = 32
 
 # H100 SXM published peaks at a 700 W power limit: 67 TFLOP/s float32
 # outside the tensor cores, i.e. 33.5e12 lane operations a second with a
@@ -76,6 +101,9 @@ OPS_PER_K2_END = 65
 K2_SCRATCH_BYTES = 2 * 9 * 4    # o, d, light of a step, written and read
 PAY_BYTES = 28                  # the winner's 7 fields, at a bounce
 F32_EPS = 2.0 ** -24            # float32 unit roundoff
+# float32 atomic adds flush subnormal operands and results to zero: each
+# add of a slot table may lose up to twice the smallest normal, 2^-125
+F32_FTZ = 2.0 ** -125
 
 GOLDENS = (("rgbbox", 1, "rgbbox_200_d1.ppm", 0.0, 0.0),
            ("rgbbox", DEPTH, "rgbbox_200.ppm", 0.15, 6.0),
@@ -191,7 +219,8 @@ class CheckedK2:
     replayed colours) and, in a second kernel launch, the per-bounce
     cotangents must be bit-equal; the slot table must lie within
     ``_slot_bound`` of the float64 sum of the plain per-bounce cotangents,
-    since the kernel adds it with float32 atomics in no fixed order."""
+    since the kernel adds it with float32 atomics in no fixed order (which
+    also flush subnormals: ``F32_FTZ`` an add)."""
 
     def __init__(self, label: str):
         from raytracers_tpu_torch.grad import replay_bwd as rb
@@ -225,7 +254,8 @@ class CheckedK2:
         if n_slots is not None:
             exact, mag, count = _slot_bound(rec, ref_step, n_slots)
             err = (out[0].double() - exact).abs()
-            bound = (count[:, None] + 1.0) * F32_EPS * mag
+            bound = ((count[:, None] + 1.0) * F32_EPS * mag
+                     + count[:, None] * F32_FTZ)
             self.max_abs_err = max(self.max_abs_err, float(err.max()))
             bad = (err > bound).nonzero()
             if bad.numel():
@@ -295,6 +325,80 @@ def _prepare(port, name: str, size: int):
     return prepare_scene(sc, size, size, with_pallas=True, with_bvh=False)
 
 
+def _soup(name: str):
+    """A random sphere soup on the card and its camera."""
+    from raytracers_tpu_torch.geometry import camera
+    from raytracers_tpu_torch.scenes import random_spheres
+    n, seed, extent, z = SOUPS[name]
+    sph = random_spheres(n, seed=seed, extent=extent)
+    cam = camera((0.0, 0.0, z), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 60.0, 1.0)
+    return sph, cam
+
+
+class Cell(NamedTuple):
+    """A render of the main path: the layout, camera, image side, depth,
+    config (tile, block, schedule, sort prefixes) and the user's call."""
+    name: str
+    ps: object
+    cam: object
+    size: int
+    depth: int
+    config: tuple
+    render: Callable
+
+    @property
+    def multi_phase(self) -> bool:
+        schedule = self.config[2]
+        return bool(schedule) and self.depth >= 16 and sum(schedule) < self.depth
+
+    @property
+    def n_phases(self) -> int:
+        return len(self.config[2]) + 1 if self.multi_phase else 1
+
+    @property
+    def n_rays(self) -> int:
+        bh, bw = self.config[1]
+        return (-(-self.size // bh) * bh) * (-(-self.size // bw) * bw)
+
+
+def _cell(port, name: str, size: int | None = None,
+          depth: int | None = None) -> Cell:
+    """The main path's render of ``name`` (at ``size`` and ``depth`` if
+    given): a scene through ``prepare_scene`` + ``render(mode="pallas")``,
+    a soup through ``build_pallas_scene`` + ``render_pallas``."""
+    from raytracers_tpu_torch.render import megakernel as mk
+    from raytracers_tpu_torch.render.api import pallas_config, render
+    size = size or CELLS[name][0]
+    depth = depth or CELLS[name][1]
+    if name in SOUPS:
+        sph, cam = _soup(name)
+        ps = mk.build_pallas_scene(sph)
+        tile, block, _, _ = SOUP_CONFIG
+        return Cell(name, ps, cam, size, depth, SOUP_CONFIG,
+                    lambda: mk.render_pallas(ps, cam, size, size,
+                                             max_depth=depth, tile=tile,
+                                             block=block))
+    prep = _prepare(port, name, size)
+    return Cell(name, prep.pallas, prep.cam, size, depth,
+                pallas_config(prep.pallas.n_clusters),
+                lambda: render(prep, size, size, mode="pallas",
+                               max_depth=depth))
+
+
+def _render_with(cell: Cell, kernel, with_stats: bool = False):
+    """The cell's render with ``kernel`` running K1 (the same schedule as
+    the user's call)."""
+    from raytracers_tpu_torch.render import megakernel as mk
+    tile, block, schedule, prefix = cell.config
+    kw = dict(max_depth=cell.depth, tile=tile, block=block,
+              with_stats=with_stats, kernel=kernel)
+    if cell.multi_phase:
+        return mk.render_pallas_twophase(cell.ps, cell.cam, cell.size,
+                                         cell.size, schedule=schedule,
+                                         sort_prefix=prefix, **kw)
+    return mk.render_pallas(cell.ps, cell.cam, cell.size, cell.size, **kw)
+
+
 def phase_kernel_vs_plain(port) -> dict:
     """K1a/K1b/K1c against the plain version; returns the checkers."""
     from raytracers_tpu_torch.render import megakernel as mk
@@ -335,16 +439,66 @@ def phase_kernel_vs_plain(port) -> dict:
     return checkers
 
 
+def phase_scene_scale_vs_plain(port) -> dict:
+    """K1e against its plain version at SCALE_CHECK_SIZE on plane-100k
+    (C = 781, 13 cull blocks, front to back) and the 1M-sphere soup
+    (C = 7,813, 123 blocks, unsorted): scanline and block tiles at depth 1,
+    the cell's own render (plane: its class schedule to depth 50, and one
+    launch to depth 50; soup: depth 5), every launch with counters; and the
+    culled depth-1 images equal to unculled launches'.  Returns the
+    checkers."""
+    from raytracers_tpu_torch.render import megakernel as mk
+    size = SCALE_CHECK_SIZE
+    checkers = {}
+    for name in ("plane", "soup1m"):
+        t0 = time.perf_counter()
+        cell = _cell(port, name, size=size)
+        ps = cell.ps
+        chk = Checked(mk, f"{name} {size}x{size}")
+        tile, block = cell.config[:2]
+        imgs = {blk: _render_with(cell._replace(
+                    depth=1, config=(tile, blk, (), None)), chk,
+                    with_stats=True)[0] for blk in (None, block)}
+        chk.compare("block-tiled image against scanline",
+                    imgs[block].reshape(-1), imgs[None].reshape(-1))
+        off = mk.render_pallas(ps, cell.cam, size, size, max_depth=1,
+                               tile=tile, cull=False)
+        chk.compare("culled image against unculled", imgs[None].reshape(-1),
+                    off.reshape(-1))
+        full, stats = _render_with(cell, chk, with_stats=True)
+        if cell.multi_phase:
+            one, one_stats = _render_with(cell._replace(config=(
+                tile, block, (), None)), chk, with_stats=True)
+            chk.compare("multi-phase image against single-phase",
+                        full.reshape(-1), one.reshape(-1))
+            for key in ("slot_tests", "ray_bounces", "cull_rows"):
+                if stats[key] != one_stats[key]:
+                    raise SmokeError(f"{name}: multi-phase {key} "
+                                     f"{stats[key]} != {one_stats[key]}")
+        log(f"[kernel=plain] {name} {size}x{size} C={ps.n_clusters} "
+            f"CB={ps.aabbT.shape[0]}: {chk.checks} bit-equal comparisons "
+            f"(K1e scanline+block d1, culled = unculled at d1, d{cell.depth}"
+            f" config {cell.config}; counters {stats['slot_tests']} slot "
+            f"tests, {stats['cull_rows']} cull rows) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        checkers[name] = chk
+    return checkers
+
+
 def _diff_scene(port, name: str, size: int):
-    """A scene's spheres and camera on the card, as a user of the fwd+bwd
-    engine passes them, and the engine's class config."""
+    """A scene's or soup's spheres and camera on the card, as a user of the
+    fwd+bwd engine passes them, the engine's layout and its class config."""
     from raytracers_tpu_torch.geometry import camera
     from raytracers_tpu_torch.render.api import pallas_diff_config
     from raytracers_tpu_torch.render.megakernel import build_pallas_scene
-    sc = port.scenes.by_name(name)
-    cam = camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov, 1.0)
-    layout = build_pallas_scene(sc.spheres)
-    return sc.spheres, cam, layout, pallas_diff_config(layout.n_clusters)
+    if name in SOUPS:
+        spheres, cam = _soup(name)
+    else:
+        sc = port.scenes.by_name(name)
+        spheres = sc.spheres
+        cam = camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov, 1.0)
+    layout = build_pallas_scene(spheres)
+    return spheres, cam, layout, pallas_diff_config(layout.n_clusters)
 
 
 def _grads(f, spheres, cam):
@@ -360,15 +514,17 @@ def _grads(f, spheres, cam):
 
 
 def phase_diff_kernels_vs_plain(port) -> dict:
-    """K1d and K2 against their plain versions at CHECK_SIZE; returns the
-    checkers by scene."""
+    """K1d and K2 against their plain versions at CHECK_SIZE, and on the
+    20k-sphere soup (K1d's two-level cull) at SOUP20K_CHECK_SIZE; returns
+    the checkers by scene."""
     import torch
     from raytracers_tpu_torch.grad import replay_bwd as rb
     from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
     from raytracers_tpu_torch.render import megakernel as mk
-    size = CHECK_SIZE
     checkers = {}
-    for name in SCENES:
+    for name in SCENES + ("soup20k",):
+        size, depth = ((SOUP20K_CHECK_SIZE, SOUP20K_DEPTH) if name in SOUPS
+                       else (CHECK_SIZE, DEPTH))
         spheres, cam, ps, (tile, block, schedule, prefix) = _diff_scene(
             port, name, size)
         k1 = Checked(mk, f"{name} {size}x{size} K1d")
@@ -377,30 +533,30 @@ def phase_diff_kernels_vs_plain(port) -> dict:
         cols = {}
         for blk in (None, block):
             cols[blk], _, rec, pay = mk.render_pallas_record(
-                ps, cam, size, size, max_depth=DEPTH, tile=tile,
+                ps, cam, size, size, max_depth=depth, tile=tile,
                 with_pay=True, block=blk, kernel=k1)
         k1.compare("block-tiled colours against scanline",
                    cols[block].reshape(-1), cols[None].reshape(-1))
         two, _ = mk.render_pallas_record_twophase(
-            ps, cam, size, size, max_depth=DEPTH, tile=tile, block=block,
+            ps, cam, size, size, max_depth=depth, tile=tile, block=block,
             schedule=schedule, sort_prefix=prefix, kernel=k1)
         k1.compare("multi-phase colours against single-phase",
                    two.reshape(-1), cols[block].reshape(-1))
-        # K2's replayed colours against K1d's, depth 50, block tiles
-        ro = mk._ray_order(cam, size, size, tile, block, 0.0, None, DEPTH)
+        # K2's replayed colours against K1d's, full depth, block tiles
+        ro = mk._ray_order(cam, size, size, tile, block, 0.0, None, depth)
         gcot = torch.zeros(rb.N_GCOT, ro.n_rays, device=rec.device)
         _, _, fwd = k2(ro.params, rec, pay, gcot, tile=tile,
                        block_tiled=True, emit_fwd=True)
         rep = mk._to_image(ro, fwd, size, size).permute(1, 2, 0)
-        k1.compare(f"K2 replayed colours against K1d's at depth {DEPTH}",
+        k1.compare(f"K2 replayed colours against K1d's at depth {depth}",
                    rep.reshape(-1), cols[block].reshape(-1))
         # the engine whole-path and at the class config, every launch of
         # both kernels checked; the segmented gradient against the
         # whole-path one within the slot tables' summation slack
-        whole = make_render_pallas_diff(size, size, max_depth=DEPTH,
+        whole = make_render_pallas_diff(size, size, max_depth=depth,
                                         tile=tile, block=block,
                                         fwd_kernel=k1, bwd_kernel=k2)
-        seg = make_render_pallas_diff(size, size, max_depth=DEPTH, tile=tile,
+        seg = make_render_pallas_diff(size, size, max_depth=depth, tile=tile,
                                       block=block, schedule=schedule,
                                       sort_prefix=prefix, fwd_kernel=k1,
                                       bwd_kernel=k2)
@@ -411,7 +567,8 @@ def phase_diff_kernels_vs_plain(port) -> dict:
         for a, b in zip(g1, g2):
             if not torch.isfinite(a).all() or a.abs().max() == 0:
                 raise SmokeError(f"{name}: a whole-path gradient is not "
-                                 "finite or is zero")
+                                 f"finite or is zero: max |g| "
+                                 f"{float(a.abs().max())}")
             # per-ray cotangents are bit-equal; only the order of the slot
             # tables' sums differs
             rel = float((a - b).abs().max() / a.abs().max())
@@ -422,7 +579,7 @@ def phase_diff_kernels_vs_plain(port) -> dict:
             f"{k2.checks} comparisons (records and pay bit-equal, per-ray "
             f"cotangents and carries bit-equal, slot tables within "
             f"{k2.table_err_share:.3f} of their bound; schedule {schedule} "
-            f"prefixes {prefix}; replayed colours bit-equal at d{DEPTH})")
+            f"prefixes {prefix}; replayed colours bit-equal at d{depth})")
         checkers[name] = (k1, k2)
     return checkers
 
@@ -483,97 +640,126 @@ def _device_profile(fn) -> dict | None:
                 gaps_next_to_k1_ms=k1_gap_ms)
 
 
-def _k1_bound(stats: dict, n_phases: int, n_rays: int):
+def _k1_bound(stats: dict, n_phases: int, n_rays: int, table_bytes: int):
     """Least time K1 could take for one render's counted work: operations
-    over the FP32 lane-op rate, or the ray state each phase must read and
-    write over HBM, whichever is larger."""
+    over the FP32 lane-op rate, or the bytes over HBM (the ray state each
+    phase must read and write, the scene's tables read once), whichever is
+    larger."""
     ops = (stats["slot_tests"] * OPS_PER_SLOT
            + stats["cull_rows"] * OPS_PER_CULL_ROW
            + stats["ray_bounces"] * OPS_PER_BOUNCE)
-    nbytes = STATE_BYTES * n_rays * (2 * n_phases - 1)
+    nbytes = STATE_BYTES * n_rays * (2 * n_phases - 1) + table_bytes
     ops_ms = ops / FP32_LANE_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
 
 
+def _table_bytes(ps) -> int:
+    """The bytes of the tables K1 reads: spheres, cluster AABBs, unions."""
+    return sum(t.numel() * 4 for t in (ps.sphT, ps.aabbT, ps.superT))
+
+
+class WarpWork:
+    """K1 with its counters on, summing per launch the sphere rows tested
+    and, for each warp of 32 consecutive rays, 32 times its busiest lane's:
+    their ratio bounds the share of the warps' visit work done by active
+    lanes from above (lanes that visit different clusters serialise, so the
+    true share is lower)."""
+
+    def __init__(self, mk):
+        self.mk, self.slots, self.warp_slots = mk, 0, 0
+
+    def __call__(self, *args, **kw):
+        out = self.mk.megakernel(*args, **dict(kw, with_stats=True))
+        per_ray = out[1][0].long()
+        self.slots += int(per_ray.sum())
+        self.warp_slots += WARP * int(per_ray.view(-1, WARP).amax(1).sum())
+        return out
+
+    def share(self) -> float:
+        return self.slots / max(self.warp_slots, 1)
+
+
 def phase_main_path(port, name: str, checker) -> dict:
     import torch
     from raytracers_tpu_torch.render import megakernel as mk
-    from raytracers_tpu_torch.render.api import (pallas_config, render,
-                                                 render_stats)
     from raytracers_tpu_torch.utils.timing import cuda_ms
     prep_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prep = _prepare(port, name, SIZE)
+        cell = _cell(port, name)
         torch.cuda.synchronize()
         prep_ms.append((time.perf_counter() - t0) * 1e3)
-    ps, cam = prep.pallas, prep.cam
-    tile, block, schedule, prefix = pallas_config(ps.n_clusters)
-    n_phases = len(schedule) + 1
+    ps, n_phases, size = cell.ps, cell.n_phases, cell.size
+    tile, block, schedule, prefix = cell.config
 
-    render(prep, SIZE, SIZE, mode="pallas")                    # warm-up
+    cell.render()                                               # warm-up
     torch.cuda.synchronize()
     mk.megakernel.launches = 0
-    img = render(prep, SIZE, SIZE, mode="pallas")
+    img = cell.render()
     torch.cuda.synchronize()
     launches = mk.megakernel.launches
     if launches != n_phases:
         raise SmokeError(f"{name}: the main path launched K1 {launches} "
                          f"times, not {n_phases}")
-    if img.shape != (SIZE, SIZE) or img.dtype != torch.int32:
+    if img.shape != (size, size) or img.dtype != torch.int32:
         raise SmokeError(f"{name}: image {tuple(img.shape)} {img.dtype}")
 
     # three rounds of REPEATS renders, each timed as one event pair
-    render_ms = [cuda_ms(lambda: render(prep, SIZE, SIZE, mode="pallas"),
-                         warmup=0, runs=REPEATS) for _ in range(3)]
+    render_ms = [cuda_ms(cell.render, warmup=0, runs=REPEATS)
+                 for _ in range(3)]
     mean_ms = sum(render_ms) / len(render_ms)
 
     timed = Timed(mk.megakernel, n_phases)
     for _ in range(REPEATS):
-        mk.render_pallas_twophase(ps, cam, SIZE, SIZE, max_depth=DEPTH,
-                                  tile=tile, block=block, schedule=schedule,
-                                  sort_prefix=prefix, kernel=timed)
+        _render_with(cell, timed)
     k1_phase_ms = timed.phase_ms()
     k1_ms = sum(k1_phase_ms)
 
-    profiled = _device_profile(lambda: render(prep, SIZE, SIZE, mode="pallas"))
+    profiled = _device_profile(cell.render)
     if profiled is None:
         log(f"[main] {name}: torch.profiler saw no device kernels")
 
-    stats = render_stats(prep, SIZE, SIZE, max_depth=DEPTH)
-    n_rays = (-(-SIZE // block[0]) * block[0]) * (-(-SIZE // block[1])
-                                                  * block[1])
-    bound_ms, bound_by = _k1_bound(stats, n_phases, n_rays)
+    # the counters of the same render (render_stats for the API cells)
+    warps = WarpWork(mk)
+    _, stats = _render_with(cell, warps, with_stats=True)
+    bound_ms, bound_by = _k1_bound(stats, n_phases, cell.n_rays,
+                                   _table_bytes(ps))
 
     plain = Timed(mk.megakernel_reference, n_phases)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain_img = mk.render_pallas_twophase(
-        ps, cam, SIZE, SIZE, max_depth=DEPTH, tile=tile, block=block,
-        schedule=schedule, sort_prefix=prefix, kernel=plain)
+    plain_img = _render_with(cell, plain)
     torch.cuda.synchronize()
     plain_render_ms = (time.perf_counter() - t0) * 1e3
     plain_ms = sum(plain.phase_ms())
-    checker.compare(f"{SIZE}x{SIZE} image against the plain render",
+    checker.compare(f"{size}x{size} image against the plain render",
                     img.reshape(-1), plain_img.reshape(-1))
+    # a soup's rays fill the card's resident warps only in part: the same
+    # render at twice the side (4x the rays) shows how far its time is set
+    # by the rays in flight rather than by their work
+    ms_2x = (cuda_ms(_cell(port, name, size=2 * size).render, warmup=1,
+                     runs=3) if name in SOUPS else None)
 
-    res = dict(scene=name, clusters=ps.n_clusters, tile=tile, block=block,
-               schedule=schedule, sort_prefix=prefix,
-               prepare_ms=prep_ms, render_ms=render_ms,
-               render_ms_mean=mean_ms, mrays_per_s=SIZE * SIZE / mean_ms / 1e3,
+    res = dict(scene=name, size=size, depth=cell.depth,
+               clusters=ps.n_clusters, cull_blocks=ps.aabbT.shape[0],
+               tile=tile, block=block, schedule=schedule,
+               sort_prefix=prefix, prepare_ms=prep_ms, render_ms=render_ms,
+               render_ms_mean=mean_ms,
+               mrays_per_s=size * size / mean_ms / 1e3,
                k1_launches=launches, k1_phase_ms=k1_phase_ms, k1_ms=k1_ms,
                sort_and_glue_ms=mean_ms - k1_ms,
                slot_tests=stats["slot_tests"],
                ray_bounces=stats["ray_bounces"],
                cull_rows=stats["cull_rows"],
-               phase_slot_tests=stats["phase_slot_tests"],
+               phase_slot_tests=stats.get("phase_slot_tests"),
+               warp_lane_share_bound=warps.share(),
                k1_bound_ms=bound_ms, k1_bound_by=bound_by,
                k1_bound_share=bound_ms / k1_ms,
                plain_k1_ms=plain_ms, plain_render_ms=plain_render_ms,
-               profile=profiled)
+               render_ms_twice_the_side=ms_2x, profile=profiled)
     log(f"[main] {json.dumps(res)}")
     return res
 
@@ -754,7 +940,8 @@ def phase_fwdbwd(port, name: str) -> dict:
     counted, captured = Counted(mk), Captured(rb.replay_bwd)
     _grads(make_render_pallas_diff(SIZE, SIZE, fwd_kernel=counted,
                                    bwd_kernel=captured, **cfg), spheres, cam)
-    n_rays = _n_rays(block)
+    n_rays = (-(-SIZE // block[0]) * block[0]) * (-(-SIZE // block[1])
+                                                  * block[1])
     (k1d_bound, k1d_by), stats = _k1d_bound(counted.launches, n_rays)
     (k2_bound, k2_by), k2_scratch_ms = _k2_bound(counted.launches, n_rays,
                                                  n_slots)
@@ -786,7 +973,8 @@ def phase_fwdbwd(port, name: str) -> dict:
                                                   p_k2.mag[real])
     count = torch.zeros(n_sph, **f64).index_add_(0, ordv[real],
                                                  p_k2.count[real])
-    bound = (count[:, None] + 2 * n_phases + 2) * F32_EPS * mag
+    bound = ((count[:, None] + 2 * n_phases + 2) * F32_EPS * mag
+             + count[:, None] * F32_FTZ)
     got = torch.cat([grads[0], grads[1][:, None], grads[2]], 1).double()
     want = torch.cat([grads_p[0], grads_p[1][:, None], grads_p[2]],
                      1).double()
@@ -831,11 +1019,6 @@ def phase_fwdbwd(port, name: str) -> dict:
     return res
 
 
-def _n_rays(block) -> int:
-    return (-(-SIZE // block[0]) * block[0]) * (-(-SIZE // block[1])
-                                                * block[1])
-
-
 def _kernels_record(checkers, diff_checkers, results, fb_results) -> list:
     """One entry per kernel and scene: K1 from the render main path, K1d
     and K2 from the fwd+bwd main path; ``max_abs_err`` from the kernel
@@ -845,10 +1028,14 @@ def _kernels_record(checkers, diff_checkers, results, fb_results) -> list:
     where = f"{SIZE}x{SIZE} d{DEPTH}"
     out = []
     for r in results:
+        # scene-scale layouts run K1e, the two-level cull
+        k1e = r["cull_blocks"] > 1
         out.append(dict(
-            name=f"K1 megakernel ({r['scene']} {where})", route="cuda",
-            source=src["megakernel"],
-            replaces="raytracers_tpu/render/pallas_kernel.py:319",
+            name=(f"K1{'e' if k1e else ''} megakernel ({r['scene']} "
+                  f"{r['size']}x{r['size']} d{r['depth']})"),
+            route="cuda", source=src["megakernel"],
+            replaces=("raytracers_tpu/render/pallas_kernel.py:"
+                      + ("526" if k1e else "319")),
             launches=r["k1_launches"],
             max_abs_err=checkers[r["scene"]].max_abs_err,
             ms=r["k1_ms"], plain_ms=r["plain_k1_ms"],
@@ -890,10 +1077,11 @@ def main() -> int:
         port = load_port()
         phase_card_and_build()
         checkers = phase_kernel_vs_plain(port)
+        checkers.update(phase_scene_scale_vs_plain(port))
         diff_checkers = phase_diff_kernels_vs_plain(port)
         phase_goldens(port)
         results = [phase_main_path(port, name, checkers[name])
-                   for name in SCENES]
+                   for name in CELLS]
         fb_results = [phase_fwdbwd(port, name) for name in SCENES]
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

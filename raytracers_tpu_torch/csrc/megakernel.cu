@@ -24,6 +24,18 @@
 // late phases, where a few rays each run a long bounce chain on one thread,
 // are bound by that thread's instruction latency instead (PERF.md).
 //
+// Scene scale (K1e, layouts of CB > 1 cull blocks of CR clusters, C > 128;
+// pallas_kernel.py:526-566, 796-838): a two-level cull.  Each ray tests the
+// CB block unions, held in shared memory (2.9 KB for a 1M-sphere soup's
+// CB = 123); only for a block whose union it meets does it read that
+// block's cluster AABBs, through the read-only cache, and visit the
+// clusters that pass, in array order behind the occlusion gate.  The
+// sphere tables stay in global memory (32 MB at 1M spheres, within the
+// 50 MB L2), where the TPU streams them from HBM by DMA (:340-475).  Lanes
+// of a warp may enter different blocks, so the loads stop being warp-
+// uniform there; the sweep is the same per-ray semantics as the TPU's
+// unrolled (CB <= 4) and dynamic sweeps, with no tail peel (:789-791).
+//
 // Arithmetic contract (bit-equal to the plain version, which the tests hold
 // against the JAX package): that of ray_math.cuh, which K2 shares, plus
 //   * min/max propagate NaN as XLA's do (a NaN slab stage keeps a cluster);
@@ -37,7 +49,8 @@
 // unchanged: the records are written beside it.
 //
 // Layouts: params (24,) f32; sphT (C,128,8) f32 rows cx cy cz rad cr cg cb r2;
-// aabbT rows of 8 (mnx mny mnz mxx mxy mxz pad pad), the first C used; state
+// aabbT (CB,CR,8) rows (mnx mny mnz mxx mxy mxz pad pad), the first C used;
+// superT (1,SBR,8) the block unions in the same rows, the first CB used; state
 // (13,n) f32 rows ox oy oz dx dy dz lr lg lb rr rg rb active; packed (n,)
 // int32; stats (3,n) int32 rows sphere rows tested, bounces, AABB slab rows;
 // rec (D,n) int32; pay (D,8,n) f32 rows cx cy cz rad cr cg cb, written only
@@ -53,7 +66,8 @@ namespace {
 using rt::kBig;
 using rt::kKeyMask;
 using rt::kLane;
-constexpr int kMaxClusters = 128;
+constexpr int kMaxClusters = 128;   // single-level: boxes in shared memory
+constexpr int kMaxBlocks = 2048;    // two-level: block unions, 48 KB
 constexpr int kThreads = 128;
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -64,18 +78,80 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
+// Slab test of a ray against one AABB: whether its [0, kBig) interval
+// meets the box, with the entry distance in lo.  The test fails only on
+// hi <= lo, so a NaN stage (an axis-parallel ray on a slab plane) keeps the
+// box (pallas_kernel.py:513-515).
+__device__ __forceinline__ bool slab(float mnx, float mny, float mnz,
+                                     float mxx, float mxy, float mxz,
+                                     float ox, float oy, float oz,
+                                     float inv_dx, float inv_dy, float inv_dz,
+                                     float& lo) {
+  float t0 = (mnx - ox) * inv_dx, t1 = (mxx - ox) * inv_dx;
+  lo = nan_min(t0, t1);
+  float hi = nan_max(t0, t1);
+  t0 = (mny - oy) * inv_dy;
+  t1 = (mxy - oy) * inv_dy;
+  lo = nan_max(lo, nan_min(t0, t1));
+  hi = nan_min(hi, nan_max(t0, t1));
+  t0 = (mnz - oz) * inv_dz;
+  t1 = (mxz - oz) * inv_dz;
+  lo = nan_max(lo, nan_min(t0, t1));
+  hi = nan_min(hi, nan_max(t0, t1));
+  return !(nan_min(hi, kBig) <= nan_max(lo, 0.0f));
+}
+
+// The packed-key closest hit over the first `rows` spheres of cluster c;
+// the winner moves only on a strictly smaller key.
+__device__ __forceinline__ void visit(const float* __restrict__ sphT, int c,
+                                      int rows, float ox, float oy, float oz,
+                                      float dx, float dy, float dz, float a,
+                                      float epsa, int& krun, int& wcl,
+                                      int& n_slots) {
+  const float* s = sphT + (size_t)c * kLane * 8;
+  int kmin = 0x7fffffff;
+  for (int l = 0; l < rows; ++l) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(s + 8 * l));
+    const float r2 = __ldg(s + 8 * l + 7);
+    const rt::Quad qd = rt::quad(ox, oy, oz, dx, dy, dz, a, q.x, q.y, q.z,
+                                 r2);
+    // sqrtf is NaN on a miss, which search_m masks
+    const float tv = rt::search_m(qd, sqrtf(qd.disc), epsa);
+    kmin = min(kmin, (__float_as_int(tv) & kKeyMask) | l);
+  }
+  n_slots += rows;
+  if (kmin < krun) {
+    krun = kmin;
+    wcl = c;
+  }
+}
+
+// kTwoLevel: the scene-scale sweep (K1e).  Otherwise one cull block of at
+// most 128 clusters, or no culling.
+template <bool kTwoLevel>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
-           const float* __restrict__ aabbT, int n_clusters, int tail_rows,
+           const float* __restrict__ aabbT, const float* __restrict__ superT,
+           int n_clusters, int n_blocks, int cull_rows, int tail_rows,
            int cull, int occl, const float* __restrict__ state_in,
            float* __restrict__ state_out, int* __restrict__ packed_out,
            int* __restrict__ stats_out, int* __restrict__ rec_out,
            float* __restrict__ pay_out, int rec_depth, int n, int tile,
            int block_tiled) {
-  __shared__ float box[6][kMaxClusters];
   const int C = n_clusters;
-  for (int k = threadIdx.x; k < 6 * C; k += blockDim.x)
-    box[k % 6][k / 6] = aabbT[(k / 6) * 8 + k % 6];
+  const int CB = n_blocks;
+  // single-level: the cluster AABBs; two-level: the block unions, row k of
+  // face k at sup[k * CB + b] (the blocks' cluster AABBs are read from
+  // global memory, through the read-only cache, only for entered blocks)
+  __shared__ float box[kTwoLevel ? 1 : 6][kTwoLevel ? 1 : kMaxClusters];
+  extern __shared__ float sup[];
+  if constexpr (kTwoLevel) {
+    for (int k = threadIdx.x; k < 6 * CB; k += blockDim.x)
+      sup[(k % 6) * CB + k / 6] = superT[(k / 6) * 8 + k % 6];
+  } else if (cull) {
+    for (int k = threadIdx.x; k < 6 * C; k += blockDim.x)
+      box[k % 6][k / 6] = aabbT[(k / 6) * 8 + k % 6];
+  }
   __syncthreads();
 
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -111,43 +187,49 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
     // closest hit: culled packed-key sweep (pallas_kernel.py:481-864)
     int krun = (__float_as_int(kBig) & kKeyMask) | (kLane - 1);
     int wcl = 0;
-    for (int c = 0; c < C; ++c) {
-      if (cull) {
-        float t0 = (box[0][c] - ox) * inv_dx, t1 = (box[3][c] - ox) * inv_dx;
-        float lo = nan_min(t0, t1), hi = nan_max(t0, t1);
-        t0 = (box[1][c] - oy) * inv_dy;
-        t1 = (box[4][c] - oy) * inv_dy;
-        lo = nan_max(lo, nan_min(t0, t1));
-        hi = nan_min(hi, nan_max(t0, t1));
-        t0 = (box[2][c] - oz) * inv_dz;
-        t1 = (box[5][c] - oz) * inv_dz;
-        lo = nan_max(lo, nan_min(t0, t1));
-        hi = nan_min(hi, nan_max(t0, t1));
-        if (nan_min(hi, kBig) <= nan_max(lo, 0.0f)) continue;
-        // occlusion gate: the box starts behind the best hit so far
-        if (occl && lo * a >= __int_as_float(krun & kKeyMask)) continue;
+    if constexpr (kTwoLevel) {
+      // K1e (pallas_kernel.py:526-566, 796-838): the block unions first;
+      // in each block whose union the ray meets, its clusters' AABBs, then
+      // the visits in array order behind the occlusion gate
+      for (int b = 0; b < CB; ++b) {
+        float lo;
+        if (!slab(sup[b], sup[CB + b], sup[2 * CB + b], sup[3 * CB + b],
+                  sup[4 * CB + b], sup[5 * CB + b], ox, oy, oz, inv_dx,
+                  inv_dy, inv_dz, lo))
+          continue;
+        const int c0 = b * cull_rows;
+        const int nb = min(cull_rows, C - c0);
+        n_cull += nb;
+        const float4* bx = reinterpret_cast<const float4*>(aabbT) + 2 * c0;
+        for (int j = 0; j < nb; ++j) {
+          const float4 p = __ldg(bx + 2 * j);
+          const float4 q = __ldg(bx + 2 * j + 1);
+          if (!slab(p.x, p.y, p.z, p.w, q.x, q.y, ox, oy, oz, inv_dx, inv_dy,
+                    inv_dz, lo))
+            continue;
+          // occlusion gate: the box starts behind the best hit so far
+          if (occl && lo * a >= __int_as_float(krun & kKeyMask)) continue;
+          visit(sphT, c0 + j, kLane, ox, oy, oz, dx, dy, dz, a, epsa, krun,
+                wcl, n_slots);
+        }
       }
-      const int rows = (c == C - 1) ? tail_rows : kLane;
-      const float* s = sphT + (size_t)c * kLane * 8;
-      int kmin = 0x7fffffff;
-      for (int l = 0; l < rows; ++l) {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(s + 8 * l));
-        const float r2 = __ldg(s + 8 * l + 7);
-        const rt::Quad qd = rt::quad(ox, oy, oz, dx, dy, dz, a, q.x, q.y,
-                                     q.z, r2);
-        // sqrtf is NaN on a miss, which search_m masks
-        const float tv = rt::search_m(qd, sqrtf(qd.disc), epsa);
-        kmin = min(kmin, (__float_as_int(tv) & kKeyMask) | l);
+      n_cull += CB;
+    } else {
+      for (int c = 0; c < C; ++c) {
+        if (cull) {
+          float lo;
+          if (!slab(box[0][c], box[1][c], box[2][c], box[3][c], box[4][c],
+                    box[5][c], ox, oy, oz, inv_dx, inv_dy, inv_dz, lo))
+            continue;
+          // occlusion gate: the box starts behind the best hit so far
+          if (occl && lo * a >= __int_as_float(krun & kKeyMask)) continue;
+        }
+        visit(sphT, c, (c == C - 1) ? tail_rows : kLane, ox, oy, oz, dx, dy,
+              dz, a, epsa, krun, wcl, n_slots);
       }
-      n_slots += rows;
-      if (kmin < krun) {
-        krun = kmin;
-        wcl = c;
-      }
+      n_cull += cull ? C : 0;
     }
-    n_cull += cull ? C : 0;
     ++n_bounces;
-
     // shading (pallas_kernel.py:866-983)
     if (krun >= (__float_as_int(kBig) & kKeyMask)) {     // miss: sky
       const float uy = dy * (1.0f / sqrtf(a));
@@ -217,18 +299,33 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
 }  // namespace
 
 extern "C" int rt_megakernel_launch(
-    const float* params, const float* sphT, const float* aabbT, int n_clusters,
-    int tail_rows, int cull, int occl, const float* state_in, float* state_out,
-    int* packed_out, int* stats_out, int* rec_out, float* pay_out,
-    int rec_depth, int n, int tile, int block_tiled, void* stream) {
-  if (n_clusters < 1 || n_clusters > kMaxClusters || n <= 0 ||
-      (rec_out != nullptr && rec_depth < 0))
+    const float* params, const float* sphT, const float* aabbT,
+    const float* superT, int n_clusters, int n_blocks, int cull_rows,
+    int tail_rows, int cull, int occl, int two_level, const float* state_in,
+    float* state_out, int* packed_out, int* stats_out, int* rec_out,
+    float* pay_out, int rec_depth, int n, int tile, int block_tiled,
+    void* stream) {
+  if (n_clusters < 1 || n <= 0 || (rec_out != nullptr && rec_depth < 0) ||
+      n_blocks < 1 || cull_rows < 1 ||
+      (long long)n_blocks * cull_rows < n_clusters)
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + kThreads - 1) / kThreads;
-  megakernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      params, sphT, aabbT, n_clusters, tail_rows, cull, occl, state_in,
-      state_out, packed_out, stats_out, rec_out, pay_out, rec_depth, n, tile,
-      block_tiled);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (two_level) {
+    // the scene-scale sweep visits whole clusters: no tail peel
+    if (!cull || n_blocks < 2 || n_blocks > kMaxBlocks || tail_rows != kLane)
+      return (int)cudaErrorInvalidValue;
+    megakernel<true><<<blocks, kThreads, 6 * n_blocks * sizeof(float), s>>>(
+        params, sphT, aabbT, superT, n_clusters, n_blocks, cull_rows,
+        tail_rows, cull, occl, state_in, state_out, packed_out, stats_out,
+        rec_out, pay_out, rec_depth, n, tile, block_tiled);
+  } else {
+    if (cull && n_clusters > kMaxClusters) return (int)cudaErrorInvalidValue;
+    megakernel<false><<<blocks, kThreads, 0, s>>>(
+        params, sphT, aabbT, superT, n_clusters, n_blocks, cull_rows,
+        tail_rows, cull, occl, state_in, state_out, packed_out, stats_out,
+        rec_out, pay_out, rec_depth, n, tile, block_tiled);
+  }
   return (int)cudaGetLastError();
 }
 

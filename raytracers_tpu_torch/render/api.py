@@ -66,33 +66,48 @@ def pallas_diff_config(C: int):
 
 
 def _render_pallas(prepared: PreparedScene, height: int, width: int,
-                   max_depth: int, with_stats: bool):
+                   max_depth: int, with_stats: bool,
+                   phase1_depth: int | None = None,
+                   schedule: tuple | None = None):
     """The megakernel render with the scene class's config: deep renders
     (``max_depth >= 16``) go through the multi-phase compaction schedule,
-    shallow ones through one launch."""
+    shallow ones through one launch.  An explicit ``schedule`` (or the
+    single boundary ``phase1_depth``) replaces the class's schedule; an
+    explicit ``schedule`` also drops the sort prefixes, as in the JAX
+    package's ``render`` (api.py:152-157)."""
     ps = prepared.pallas
     if ps is None:
         raise ValueError("prepare_scene(..., with_pallas=True) required "
                          "for mode='pallas'")
-    tile, block, schedule, sort_prefix = pallas_config(ps.n_clusters)
+    tile, block, default_sched, sort_prefix = pallas_config(ps.n_clusters)
+    if schedule is None:
+        schedule = ((phase1_depth,) if phase1_depth is not None
+                    else default_sched)
+    else:
+        sort_prefix = None
     kw = dict(max_depth=max_depth, tile=tile, block=block,
               with_stats=with_stats)
     if max_depth >= 16 and sum(schedule) < max_depth:
         return render_pallas_twophase(ps, prepared.cam, width, height,
-                                      schedule=schedule,
+                                      schedule=tuple(schedule),
                                       sort_prefix=sort_prefix, **kw)
     return render_pallas(ps, prepared.cam, width, height, **kw)
 
 
 def render(prepared: PreparedScene, height: int, width: int,
            mode: str = "bvh", max_depth: int = MAX_DEPTH,
-           chunk: int | None = None):
+           chunk: int | None = None, phase1_depth: int | None = None,
+           schedule: tuple | None = None):
     """Render to the packed int32 image (h, w) (futhark/ray.fut:246-247).
 
-    ``mode="pallas"`` runs the megakernel with the scene class's config;
-    ``mode="brute"`` is the all-pairs tracer; ``chunk`` bounds its batch."""
+    ``mode="pallas"`` runs the megakernel with the scene class's config,
+    scene-scale layouts (C > 128) through the two-level cull; ``schedule``
+    (or the single boundary ``phase1_depth``) overrides the class's
+    compaction schedule of deep renders.  ``mode="brute"`` is the
+    all-pairs tracer; ``chunk`` bounds its batch."""
     if mode == "pallas":
-        return _render_pallas(prepared, height, width, max_depth, False)
+        return _render_pallas(prepared, height, width, max_depth, False,
+                              phase1_depth, schedule)
     if mode == "brute":
         return render_packed(bruteforce.make_closest_hit(prepared.spheres),
                              prepared.spheres, prepared.cam, width, height,

@@ -59,6 +59,7 @@ _KRUN_INIT = _HIT_TH | (LANE - 1)
 
 N_STATE = 13   # ox oy oz dx dy dz lr lg lb rr rg rb active
 N_STATS = 3    # sphere rows tested, bounces run, AABB slab rows tested
+MAX_BLOCKS = 2048   # block unions the kernel holds in shared memory (48 KB)
 
 
 class PallasScene(NamedTuple):
@@ -85,7 +86,8 @@ class PallasScene(NamedTuple):
         return self.sphT.shape[0]
 
 
-def build_pallas_scene(sph: Spheres, sort_origin=None) -> PallasScene:
+def build_pallas_scene(sph: Spheres, sort_origin=None,
+                       cull_rows: int | None = None) -> PallasScene:
     """Morton-sort and cluster the scene into the kernel layout
     (pallas_kernel.py:121-300, at cluster width 128).
 
@@ -94,8 +96,10 @@ def build_pallas_scene(sph: Spheres, sort_origin=None) -> PallasScene:
     of CR clusters (and, for scene-scale layouts, the full blocks too), so
     the occlusion gate of C > 16 scenes prunes far clusters.  The argsorts
     are stable: irreg's grid is symmetric about its camera and many
-    distances tie.  Scene-scale layouts (C > 128) take blocks of CR = 64
-    cull rows, as the JAX package does by default."""
+    distances tie.  Scene-scale layouts (C > 128) take blocks of
+    CR = ``cull_rows`` cull rows (default 64, rounded down to a multiple
+    of 8 within [8, 128]), as the JAX package does; any CR gives the same
+    image, since culling is conservative at any grouping."""
     W = LANE
     n = sph.center.shape[0]
     dev = sph.center.device
@@ -118,7 +122,8 @@ def build_pallas_scene(sph: Spheres, sort_origin=None) -> PallasScene:
     C = clusters.n_leaves
     s = clusters.spheres
 
-    CR = max(8, -(-C // 8) * 8) if C <= LANE else 64
+    CR = (max(8, -(-C // 8) * 8) if C <= LANE
+          else max(8, min(LANE, cull_rows or 64) // 8 * 8))
 
     leaf_min, leaf_max = clusters.leaf_min, clusters.leaf_max
     order2d = clusters.order.reshape(C, W)
@@ -195,22 +200,36 @@ def build_pallas_scene(sph: Spheres, sort_origin=None) -> PallasScene:
 
 
 def _check_supported(scene: PallasScene) -> None:
-    if scene.aabbT.shape[0] > 1:
-        raise NotImplementedError(
-            "scene-scale layouts (more than one cluster block, C > 128) need "
-            "the two-level cull, which is not ported yet (ROADMAP queue 2, "
-            "K1e)")
     if scene.sphT.shape[1] != LANE:
         raise NotImplementedError("only 128-sphere clusters are ported")
+    if scene.aabbT.shape[0] > MAX_BLOCKS:
+        raise ValueError(f"{scene.aabbT.shape[0]} cluster blocks: the kernel "
+                         f"keeps at most {MAX_BLOCKS} block unions in shared "
+                         "memory; raise cull_rows")
 
 
-def _kernel_flags(scene: PallasScene):
-    """(cull, occlusion gate, rows of the last cluster) as the TPU kernel
-    derives them: culling for C > 1, the occlusion gate for C > 16, and
-    the tail peel when P < 128 (pallas_kernel.py:725,789,1094)."""
+class _Flags(NamedTuple):
+    cull: bool          # per-ray AABB culling of clusters
+    occl: bool          # the occlusion gate
+    two_level: bool     # block unions first, then the entered blocks' boxes
+    tail_rows: int      # sphere rows of the last cluster (128: no peel)
+
+
+def _kernel_flags(scene: PallasScene, cull: bool | None = None) -> _Flags:
+    """The TPU kernel's static choices (pallas_kernel.py:725, 789-791,
+    1094-1095, 1402): culling for C > 1 unless ``cull`` says otherwise, the
+    occlusion gate for culled C > 16, the two-level cull for culled layouts
+    of more than one block, and the tail peel when P < 128 only for
+    single-level sweeps of C <= 1024 (the TPU's sphere tables move to HBM
+    beyond that).  The peel is semantics, not only speed: a radius-0
+    padding row can register a hit (pallas_kernel.py:166-172)."""
     C = scene.n_clusters
-    cull = C > 1
-    return cull, cull and C > 16, scene.tailT.shape[0]
+    if cull is None:
+        cull = C > 1
+    two_level = cull and scene.aabbT.shape[0] > 1
+    P = scene.tailT.shape[0]
+    peel = P < LANE and C <= 1024 and not two_level
+    return _Flags(cull, cull and C > 16, two_level, P if peel else LANE)
 
 
 # ---------------------------------------------------------------------------
@@ -246,57 +265,99 @@ def _gen_rays(params: torch.Tensor, n_rays: int, tile: int,
     return torch.stack(o + d + [ones, ones, ones, zeros, zeros, zeros, ones])
 
 
-def _closest_hit_reference(scene: PallasScene, cull: bool, occl: bool,
-                           tail_rows: int, ox, oy, oz, dx, dy, dz, a):
-    """Per-ray culled packed-key search over the live rays.  Returns the
-    winning key, the winner's cluster and the sphere rows each ray tested."""
+def _slab(box, ox, oy, oz, dx, dy, dz):
+    """Slab test of each ray (m,) against each row (mn xyz, mx xyz) of an
+    AABB table (k, 8): the entry distances lo (m, k) and whether the ray's
+    [0, BIG) interval meets the box.  min/max propagate NaN, and the test
+    fails only on ``hi <= lo``, so a NaN stage keeps the box."""
+    lo = hi = None
+    for k, (oo, dd) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
+        inv = (1.0 / dd)[:, None]
+        t0 = (box[:, k] - oo[:, None]) * inv
+        t1 = (box[:, 3 + k] - oo[:, None]) * inv
+        alo, ahi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        lo = alo if lo is None else torch.maximum(lo, alo)
+        hi = ahi if hi is None else torch.minimum(hi, ahi)
+    big = torch.tensor(_BIG, dtype=torch.float32, device=ox.device)
+    zero = torch.zeros((), dtype=torch.float32, device=ox.device)
+    return lo, ~(torch.minimum(hi, big) <= torch.maximum(lo, zero))
+
+
+def _closest_hit_reference(scene: PallasScene, flags: _Flags,
+                           ox, oy, oz, dx, dy, dz, a):
+    """Per-ray culled packed-key search over the live rays.
+
+    Single-level (one cull block): every cluster's AABB, then the visit.
+    Two-level (K1e, pallas_kernel.py:526-566, 796-838): each ray tests the
+    CB block unions of ``superT``, and only in the blocks whose union it
+    meets the blocks' cluster AABBs; clusters are visited in array order,
+    block by block, behind the occlusion gate.  Padding clusters are never
+    visited.  The work goes block by block, so no (m, C) tensor is made.
+
+    Returns the winning key, the winner's cluster, and per ray the sphere
+    rows tested and the AABB rows tested (``cull_rows``: C a bounce for a
+    single-level sweep; CB super rows plus the clusters of each entered
+    block for a two-level one)."""
     sphT = scene.sphT
     C = scene.n_clusters
+    CB, CR = scene.aabbT.shape[:2]
     m = ox.shape[0]
-    epsa = SCENE_EPSILON * a
-    krun = torch.full((m,), _KRUN_INIT, dtype=torch.int32, device=ox.device)
-    wcl = torch.zeros(m, dtype=torch.int64, device=ox.device)
-    slots = torch.zeros(m, dtype=torch.int32, device=ox.device)
-    lanes = torch.arange(LANE, dtype=torch.int32, device=ox.device)
-    if cull:
-        # slab of every cluster AABB at once: (m, C), min/max propagate NaN
-        box = scene.aabbT.reshape(-1, 8)[:C]
-        lo = hi = None
-        for k, (oo, dd) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
-            inv = (1.0 / dd)[:, None]
-            t0 = (box[:, k] - oo[:, None]) * inv
-            t1 = (box[:, 3 + k] - oo[:, None]) * inv
-            alo, ahi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-            lo = alo if lo is None else torch.maximum(lo, alo)
-            hi = ahi if hi is None else torch.minimum(hi, ahi)
-        big = torch.tensor(_BIG, dtype=torch.float32, device=ox.device)
-        zero = torch.zeros((), dtype=torch.float32, device=ox.device)
-        slab_ok = ~(torch.minimum(hi, big) <= torch.maximum(lo, zero))
-    for c in range(C):
-        rows = tail_rows if c == C - 1 else LANE
-        if cull:
-            keep = slab_ok[:, c]
-            if occl:
-                best_f = (krun & _KEY_MASK).view(torch.float32)
-                keep = keep & ~(lo[:, c] * a >= best_f)
-            idx = keep.nonzero().squeeze(1)
-            if idx.numel() == 0:
-                continue
+    dev = ox.device
+    krun = torch.full((m,), _KRUN_INIT, dtype=torch.int32, device=dev)
+    wcl = torch.zeros(m, dtype=torch.int64, device=dev)
+    slots = torch.zeros(m, dtype=torch.int32, device=dev)
+    crows = torch.zeros(m, dtype=torch.int32, device=dev)
+    lanes = torch.arange(LANE, dtype=torch.int32, device=dev)
+    ray = (ox, oy, oz, dx, dy, dz)
+    if flags.two_level:
+        _, sup_ok = _slab(scene.superT[0, :CB], *ray)        # (m, CB)
+        crows += CB
+        blocks = [(b * CR, min(CR, C - b * CR),
+                   sup_ok[:, b].nonzero().squeeze(1)) for b in range(CB)]
+    else:
+        if flags.cull:
+            crows += C
+        blocks = [(0, C, torch.arange(m, device=dev))]
+    boxes = scene.aabbT.reshape(-1, 8)
+    for c0, nb, ids in blocks:
+        if ids.numel() == 0:
+            continue
+        if flags.two_level:
+            crows[ids] += nb
+        r = [x[ids] for x in ray]
+        ab = a[ids]
+        if flags.cull:
+            lo, ok = _slab(boxes[c0:c0 + nb], *r)             # (mb, nb)
+            visits = ok.any(dim=0).nonzero().squeeze(1).tolist()
         else:
-            idx = torch.arange(m, device=ox.device)
-        s = sphT[c, :rows]                                   # (rows, 8)
-        q = quad(ox[idx, None], oy[idx, None], oz[idx, None],
-                 dx[idx, None], dy[idx, None], dz[idx, None], a[idx, None],
-                 s[:, 0], s[:, 1], s[:, 2], s[:, 7])
-        tv = search_m(q, sqrt(q.disc), epsa[idx, None])
-        key = (tv.view(torch.int32) & _KEY_MASK) | lanes[:rows]
-        kmin = key.amin(dim=1)
-        cur = krun[idx]
-        imp = kmin < cur
-        krun[idx] = torch.where(imp, kmin, cur)
-        wcl[idx] = torch.where(imp, c, wcl[idx])
-        slots[idx] += rows
-    return krun, wcl, slots
+            visits = range(nb)
+        for j in visits:
+            c = c0 + j
+            rows = flags.tail_rows if c == C - 1 else LANE
+            if flags.cull:
+                keep = ok[:, j]
+                if flags.occl:
+                    best_f = (krun[ids] & _KEY_MASK).view(torch.float32)
+                    keep = keep & ~(lo[:, j] * ab >= best_f)
+                sel = keep.nonzero().squeeze(1)
+                if sel.numel() == 0:
+                    continue
+                g = ids[sel]
+                ro = [x[sel, None] for x in r] + [ab[sel, None]]
+            else:
+                g = ids
+                ro = [x[:, None] for x in r] + [ab[:, None]]
+            s = sphT[c, :rows]                               # (rows, 8)
+            q = quad(*ro, s[:, 0], s[:, 1], s[:, 2], s[:, 7])
+            tv = search_m(q, sqrt(q.disc), SCENE_EPSILON * ro[6])
+            key = (tv.view(torch.int32) & _KEY_MASK) | lanes[:rows]
+            kmin = key.amin(dim=1)
+            cur = krun[g]
+            imp = kmin < cur
+            krun[g] = torch.where(imp, kmin, cur)
+            wcl[g] = torch.where(imp, c, wcl[g])
+            slots[g] += rows
+    return krun, wcl, slots, crows
 
 
 def megakernel_reference(scene: PallasScene, params: torch.Tensor,
@@ -304,19 +365,18 @@ def megakernel_reference(scene: PallasScene, params: torch.Tensor,
                          state_in: torch.Tensor | None = None,
                          emit_state: bool = False, with_stats: bool = False,
                          record_depth: int | None = None,
-                         record_pay: bool = False):
+                         record_pay: bool = False, cull: bool | None = None):
     """Plain torch version of K1, on any device, with the kernel's per-ray
     arithmetic: square roots correctly rounded through float64, no fused
     multiply-adds.  Bounces run over the live rays only and each cluster
     over the rays its gates pass.  Same arguments and results as
     ``megakernel``."""
     _check_supported(scene)
-    cull, occl, tail_rows = _kernel_flags(scene)
+    flags = _kernel_flags(scene, cull)
     dev = params.device
     S = (_gen_rays(params, n_rays, tile, block_tiled) if state_in is None
          else state_in.clone())
     stats = torch.zeros(N_STATS, n_rays, dtype=torch.int32, device=dev)
-    C = scene.n_clusters
     rec = pay = None
     if record_depth is not None:
         depth_cap = record_depth
@@ -333,11 +393,11 @@ def megakernel_reference(scene: PallasScene, params: torch.Tensor,
             break
         ox, oy, oz, dx, dy, dz, lr, lg, lb, rr, rg, rb = S[:12, live]
         a = dx * dx + dy * dy + dz * dz
-        krun, wcl, slots = _closest_hit_reference(
-            scene, cull, occl, tail_rows, ox, oy, oz, dx, dy, dz, a)
+        krun, wcl, slots, crows = _closest_hit_reference(
+            scene, flags, ox, oy, oz, dx, dy, dz, a)
         stats[0, live] += slots
         stats[1, live] += 1
-        stats[2, live] += C if cull else 0
+        stats[2, live] += crows
 
         hit = krun < _HIT_TH
         lane = krun & (LANE - 1)
@@ -407,7 +467,7 @@ def _check_launch(scene: PallasScene, params, n_rays, tile, block_tiled,
         raise ValueError("block tiles map generated rays; a continuation "
                          "takes its rays from state_in")
     for name, t in (("sphT", scene.sphT), ("aabbT", scene.aabbT),
-                    ("state_in", state_in)):
+                    ("superT", scene.superT), ("state_in", state_in)):
         if t is None:
             continue
         if t.device != dev or t.dtype != torch.float32:
@@ -422,7 +482,8 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
                tile: int, *, block_tiled: bool = False,
                state_in: torch.Tensor | None = None,
                emit_state: bool = False, with_stats: bool = False,
-               record_depth: int | None = None, record_pay: bool = False):
+               record_depth: int | None = None, record_pay: bool = False,
+               cull: bool | None = None):
     """K1: trace ``n_rays`` rays until they die or reach the depth cap
     ``params[13]``.
 
@@ -431,7 +492,14 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
     result is the packed int32 (n_rays,) image in ray order, or with
     ``emit_state`` the (13, n_rays) state; ``with_stats`` adds (3, n_rays)
     int32 per-ray counters (K1c): sphere rows tested, bounces run, AABB
-    slab rows tested.  Returns (out, stats or None).
+    slab rows tested (``cull_rows``: per bounce C for a single-level
+    sweep, and for a two-level one the CB block unions plus the cluster
+    rows of each block whose union the ray meets).  Returns (out, stats or
+    None).
+
+    ``cull`` (default: C > 1) turns AABB culling on or off; the image is
+    the same either way.  Layouts of more than one cull block (C > 128)
+    take the two-level cull (K1e) when culled.
 
     ``record_depth=D`` (K1d) makes D the depth cap instead of ``params[13]``
     and adds the path record: returns (out, stats, rec, pay) with ``rec``
@@ -453,13 +521,14 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
         return megakernel_reference(
             scene, params, n_rays, tile, block_tiled=block_tiled,
             state_in=state_in, emit_state=emit_state, with_stats=with_stats,
-            record_depth=record_depth, record_pay=record_pay)
+            record_depth=record_depth, record_pay=record_pay, cull=cull)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
     from . import _cuda
     fn = _cuda.load("megakernel")
     dev = params.device
-    cull, occl, tail_rows = _kernel_flags(scene)
+    flags = _kernel_flags(scene, cull)
+    CB, CR = scene.aabbT.shape[:2]
     state_out = (torch.empty(N_STATE, n_rays, dtype=torch.float32, device=dev)
                  if emit_state else None)
     packed = (None if emit_state else
@@ -474,7 +543,8 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
                               device=dev)
 
     rc = fn(_ptr(params), _ptr(scene.sphT), _ptr(scene.aabbT),
-            scene.n_clusters, tail_rows, int(cull), int(occl),
+            _ptr(scene.superT), scene.n_clusters, CB, CR, flags.tail_rows,
+            int(flags.cull), int(flags.occl), int(flags.two_level),
             _ptr(state_in), _ptr(state_out), _ptr(packed), _ptr(stats),
             _ptr(rec), _ptr(pay), record_depth or 0,
             n_rays, tile, int(block_tiled),
@@ -563,20 +633,22 @@ def _stats_dict(stats: torch.Tensor) -> dict:
 
 def render_pallas(scene: PallasScene, cam: Camera, width: int, height: int,
                   max_depth: int = MAX_DEPTH, tile: int = DEFAULT_TILE,
-                  block: tuple | None = None, row0=0.0,
-                  total_height: int | None = None, with_stats: bool = False,
-                  kernel: Callable = megakernel):
+                  block: tuple | None = None, cull: bool | None = None,
+                  row0=0.0, total_height: int | None = None,
+                  with_stats: bool = False, kernel: Callable = megakernel):
     """Render -> packed int32 (h, w) with one K1 launch
     (pallas_kernel.py:1071-1147).  ``block=(bh, bw)`` with bh*bw == tile
-    maps tiles to image rectangles instead of scanline runs; ``row0`` /
-    ``total_height`` render rows [row0, row0+height) of a taller image.
-    ``kernel`` is what runs K1: the wrapper, or anything with its
-    signature (its plain version, or a checking or timing wrapper)."""
+    maps tiles to image rectangles instead of scanline runs; ``cull``
+    (default: C > 1) turns AABB culling on or off, with the same image;
+    ``row0`` / ``total_height`` render rows [row0, row0+height) of a
+    taller image.  ``kernel`` is what runs K1: the wrapper, or anything
+    with its signature (its plain version, or a checking or timing
+    wrapper)."""
     ro = _ray_order(cam, width, height, tile, block, row0, total_height,
                     max_depth)
     out, stats = kernel(scene, ro.params, ro.n_rays, tile,
                         block_tiled=block is not None,
-                        with_stats=with_stats)
+                        with_stats=with_stats, cull=cull)
     img = _to_image(ro, out, width, height)
     return (img, _stats_dict(stats)) if with_stats else img
 

@@ -96,3 +96,53 @@ def test_not_ported_paths_raise():
     bare = tapi.prepare_scene(sc, 8, 8, with_bvh=False, device=CPU)
     with pytest.raises(ValueError, match="with_pallas"):
         tapi.render(bare, 8, 8, mode="pallas")
+
+
+def test_render_schedule_overrides():
+    """``schedule`` and ``phase1_depth`` as in the JAX package's render:
+    each replaces the class schedule (the image is the same: schedules only
+    repartition the bounce loop); an explicit schedule drops the class's
+    sort prefixes, ``phase1_depth`` keeps them."""
+    port, _ = _prepared("rgbbox", 32)
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append((kw["schedule"], kw["sort_prefix"]))
+        return tmk.render_pallas_twophase(*args, **kw)
+
+    base = tapi.render(port, 32, 32, mode="pallas", max_depth=20)
+    orig, tapi.render_pallas_twophase = tapi.render_pallas_twophase, spy
+    try:
+        a = tapi.render(port, 32, 32, mode="pallas", max_depth=20,
+                        schedule=(4, 8))
+        b = tapi.render(port, 32, 32, mode="pallas", max_depth=20,
+                        phase1_depth=5)
+    finally:
+        tapi.render_pallas_twophase = orig
+    assert torch.equal(a, base) and torch.equal(b, base)
+    assert seen == [((4, 8), None), ((5,), (None, 0.5, 0.25))]
+
+
+def test_scene_scale_render_through_the_api():
+    """plane(n_side=130), C = 133 in three cull blocks, front to back: the
+    scene-scale class config through ``render``, depth 1 bit-exact against
+    the JAX package's render; deep, the multi-phase render equals one
+    launch, and ``render_stats`` counts the two-level cull."""
+    sc = tscenes.plane(n_side=130, device=CPU)
+    port = tapi.prepare_scene(sc, 24, 24, with_pallas=True, with_bvh=False,
+                              device=CPU)
+    ps = port.pallas
+    assert ps.n_clusters == 133 and ps.aabbT.shape[0] == 3
+    ref = japi.prepare_scene(jscenes.plane(n_side=130), 24, 24,
+                             with_pallas=True, with_bvh=False)
+    img = tapi.render(port, 24, 24, mode="pallas", max_depth=1)
+    want = japi.render(ref, 24, 24, mode="pallas", max_depth=1,
+                       interpret=True)
+    np.testing.assert_array_equal(img.numpy(), np.asarray(want))
+    deep = tapi.render(port, 24, 24, mode="pallas", max_depth=16)
+    one = tmk.render_pallas(ps, port.cam, 24, 24, max_depth=16)
+    assert torch.equal(deep, one)
+    stats = tapi.render_stats(port, 24, 24, max_depth=16)
+    assert len(stats["phase_slot_tests"]) == 4
+    assert 3 * stats["ray_bounces"] <= stats["cull_rows"]
+    assert stats["cull_rows"] <= (3 + 133) * stats["ray_bounces"]

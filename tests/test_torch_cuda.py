@@ -220,3 +220,39 @@ def test_replayed_colours_equal_record_colours(cuda, name):
     assert trb.replay_bwd.launches == before + 1
     rep = tmk._to_image(ro, fwd, SIZE, SIZE).permute(1, 2, 0)
     assert torch.equal(_bits(rep.contiguous()), _bits(col))
+
+
+def _soup20k(device):
+    """The 20k-sphere soup of tests/test_pallas.py:88-103 (C = 157, three
+    cull blocks: the scene-scale two-level cull, K1e) and its camera."""
+    sph = tscenes.random_spheres(20_000, seed=5, extent=200.0, device=device)
+    cam = tgeo.camera((0., 0., 260.), (0., 0., 0.), (0., 1., 0.), 60.0, 1.0,
+                      device=device)
+    return tmk.build_pallas_scene(sph), cam
+
+
+@pytest.mark.parametrize("depth", [1, 8])
+@pytest.mark.parametrize("blocked", [False, True])
+def test_scene_scale_kernel_equals_plain(cuda, blocked, depth):
+    """K1e: images and counters bit-equal to the plain version; culled
+    equals unculled."""
+    ps, cam = _soup20k(cuda)
+    assert ps.aabbT.shape[0] == 3
+    block = (16, 16) if blocked else None
+    both = _Both()
+    img, stats = tmk.render_pallas(ps, cam, SIZE, SIZE, max_depth=depth,
+                                   tile=256, block=block, with_stats=True,
+                                   kernel=both)
+    off = tmk.render_pallas(ps, cam, SIZE, SIZE, max_depth=depth, tile=256,
+                            block=block, cull=False, kernel=both)
+    assert both.launches == 2 and torch.equal(img, off)
+    assert stats["cull_rows"] >= 3 * stats["ray_bounces"]
+
+
+def test_scene_scale_record_kernel_equals_plain(cuda):
+    """K1d at CB > 1: records, pay at bounces and state rows bit-equal."""
+    ps, cam = _soup20k(cuda)
+    both = _Both()
+    tmk.render_pallas_record(ps, cam, SIZE, SIZE, max_depth=5, tile=256,
+                             with_pay=True, block=(16, 16), kernel=both)
+    assert both.launches == 1

@@ -45,15 +45,22 @@ def test_build_clusters_equal(name, leaf):
 
 
 def _layout_case(case):
-    """(JAX Spheres, sort_origin) of one layout case."""
-    if case == "random-20k":
-        # 157 clusters: a scene-scale layout (three cull blocks)
-        return jscenes.random_spheres(20_000, seed=5, extent=200.0), None
+    """(JAX Spheres, sort_origin, cull_rows) of one layout case."""
+    if case.startswith("random-20k"):
+        # 157 clusters: a scene-scale layout (three cull blocks of 64, or
+        # five of 32)
+        sph = jscenes.random_spheres(20_000, seed=5, extent=200.0)
+        return (sph, (0.0, 0.0, 260.0) if "sorted" in case else None,
+                32 if "cr32" in case else None)
+    if case == "plane-130-sorted":
+        # 133 clusters in 3 blocks: the full blocks reorder front to back
+        sc = jscenes.plane(n_side=130)
+        return sc.spheres, sc.look_from, None
     name, _, rest = case.partition("-")
     sc = jscenes.by_name(name)
     if rest.isdigit():
-        return _subset(sc.spheres, int(rest)), None
-    return sc.spheres, (sc.look_from if rest == "sorted" else None)
+        return _subset(sc.spheres, int(rest)), None, None
+    return sc.spheres, (sc.look_from if rest == "sorted" else None), None
 
 
 @pytest.mark.parametrize("case,clusters,tail", [
@@ -65,12 +72,16 @@ def _layout_case(case):
     ("irreg-300", 3, 64),
     ("irreg-385", 4, 8),
     ("random-20k", 157, 32),
+    ("random-20k-sorted", 157, 128),   # blocks reordered (n_full = 2)
+    ("random-20k-sorted-cr32", 157, 128),    # CR = 32: n_full = 4
+    ("plane-130-sorted", 133, 128),
 ])
 def test_pallas_scene_equal(case, clusters, tail):
-    jsph, origin = _layout_case(case)
-    ref = jpk.build_pallas_scene(jsph, sort_origin=origin)
+    jsph, origin, cull_rows = _layout_case(case)
+    ref = jpk.build_pallas_scene(jsph, sort_origin=origin,
+                                 cull_rows=cull_rows)
     port = tmk.build_pallas_scene(convert.spheres(jsph, CPU),
-                                  sort_origin=origin)
+                                  sort_origin=origin, cull_rows=cull_rows)
     assert port.n_clusters == clusters
     assert port.tailT.shape[0] == tail
     for field in tmk.PallasScene._fields:
@@ -91,14 +102,3 @@ def test_irreg_front_to_back_order_has_ties():
     dist = (ctr * ctr).sum(dim=1)
     assert len(torch.unique(dist)) < len(dist)
     assert not torch.equal(port.order, unsorted.order)
-
-
-def test_scene_scale_render_not_ported():
-    from raytracers_tpu_torch import geometry as tgeo
-    jsph, _ = _layout_case("random-20k")
-    ps = tmk.build_pallas_scene(convert.spheres(jsph, CPU))
-    assert ps.aabbT.shape[0] > 1
-    cam = tgeo.camera((0., 0., 260.), (0., 0., 0.), (0., 1., 0.), 60.0, 1.0,
-                      device=CPU)
-    with pytest.raises(NotImplementedError, match="K1e"):
-        tmk.render_pallas(ps, cam, 16, 16, max_depth=1, tile=256)
