@@ -48,7 +48,22 @@ a failed phase exits non-zero before the final line:
    around one step (K1d once a phase, K2 once a segment), finite non-zero
    gradients, step times with CUDA events, per-launch K1d and K2 times, one
    profiled step, the bounds, and the gradient against the plain engine on
-   the card.
+   the card;
+7. the BVH path against its plain versions: ``build_bvh`` on the card
+   field for field equal to the CPU build (rgbbox, irreg and plane at leaf
+   8, the 1M-sphere soup of ``bench.py`` at leaf 128 and 8),
+   ``validate_bvh`` clean on rgbbox and irreg; K3 (``render_traversal``)
+   bit-equal to its plain version at 200x200, both scenes, scanline and
+   block, depth 1 and 50; K3 and ``render(mode="bvh")`` against the goldens
+   (depth 1 bit-exact, depth 50 within their tolerances);
+8. main path, BVH (``[bvh]`` lines): the 1M-sphere ``build_bvh`` at leaf
+   128 and 8 (CUDA events, one warm-up, 3 runs); ``prepare_scene`` with
+   the tree and ``render(mode="bvh")`` for rgbbox and irreg at 1000x1000,
+   depth 50 (one warm-up, 2 timed renders); K3 for
+   both scenes at 1000x1000, depth 50, default tile and blocks: launches
+   counted from zero around one render, 3 rounds of 5 renders, the kernel's
+   time by CUDA events, the plain version's time and counters on the card,
+   the bound, and the image bit-equal to the plain version's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -104,6 +119,15 @@ F32_EPS = 2.0 ** -24            # float32 unit roundoff
 # float32 atomic adds flush subnormal operands and results to zero: each
 # add of a slot table may lose up to twice the smallest normal, 2^-125
 F32_FTZ = 2.0 ** -125
+
+# K3's lane operations per unit of counted work, with their breakdown in
+# csrc/traversal.cu's header: an inner-node slab test, a sphere slot tested,
+# one with a positive discriminant, a far root tried, a bounce that hits, one
+# that ends on the sky, and a ray's primary direction and packing
+K3_OPS = dict(node_steps=39, slot_tests=21, slot_roots=6, far_roots=5,
+              hit_bounces=81, sky_bounces=28, rays=27)
+# the BVH build's soup (bench.py:249-267) and its leaf sizes
+BVH_SOUP, BVH_LEAVES = (1_000_000, 0), (128, 8)
 
 GOLDENS = (("rgbbox", 1, "rgbbox_200_d1.ppm", 0.0, 0.0),
            ("rgbbox", DEPTH, "rgbbox_200.ppm", 0.15, 6.0),
@@ -584,24 +608,31 @@ def phase_diff_kernels_vs_plain(port) -> dict:
     return checkers
 
 
-def phase_goldens(port) -> None:
+def _golden_check(what: str, img, fname: str, max_mis: float,
+                  max_delta: float) -> None:
     import numpy as np
     from raytracers_tpu_torch.image import pixel_to_rgb, read_ppm
+    img = img.cpu().numpy()
+    ref = read_ppm(str(ROOT / "tests" / "golden" / fname))
+    mis = float((img != ref).mean())
+    delta = float(np.abs(pixel_to_rgb(img).astype(np.int32)
+                         - pixel_to_rgb(ref).astype(np.int32)).mean())
+    log(f"[golden] {what} {fname}: mismatch {mis} (limit {max_mis}), "
+        f"mean |drgb| {delta} (limit {max_delta})")
+    if mis > max_mis or delta > max_delta:
+        raise SmokeError(f"{what}: golden {fname} out of tolerance")
+
+
+def phase_goldens(port) -> None:
     from raytracers_tpu_torch.render.api import render
     preps = {}
     for name, depth, fname, max_mis, max_delta in GOLDENS:
         prep = preps.get(name) or _prepare(port, name, CHECK_SIZE)
         preps[name] = prep
         img = render(prep, CHECK_SIZE, CHECK_SIZE, mode="pallas",
-                     max_depth=depth).cpu().numpy()
-        ref = read_ppm(str(ROOT / "tests" / "golden" / fname))
-        mis = float((img != ref).mean())
-        delta = float(np.abs(pixel_to_rgb(img).astype(np.int32)
-                             - pixel_to_rgb(ref).astype(np.int32)).mean())
-        log(f"[golden] {fname}: mismatch {mis} (limit {max_mis}), "
-            f"mean |drgb| {delta} (limit {max_delta})")
-        if mis > max_mis or delta > max_delta:
-            raise SmokeError(f"golden {fname} out of tolerance")
+                     max_depth=depth)
+        _golden_check("render(mode='pallas')", img, fname, max_mis,
+                      max_delta)
 
 
 def _device_profile(fn) -> dict | None:
@@ -1019,10 +1050,227 @@ def phase_fwdbwd(port, name: str) -> dict:
     return res
 
 
-def _kernels_record(checkers, diff_checkers, results, fb_results) -> list:
+class CheckedK3:
+    """K3 with each launch repeated by its plain version on the same inputs
+    on the card; any bit of difference fails the phase."""
+
+    def __init__(self, tr, label: str):
+        self.tr, self.label = tr, label
+        self.checks = 0
+        self.max_abs_err = 0.0
+
+    def __call__(self, scene, params, n_rays, tile, **kw):
+        out = self.tr.traversal_kernel(scene, params, n_rays, tile, **kw)
+        ref, _ = self.tr.traversal_kernel_reference(scene, params, n_rays,
+                                                    tile, **kw)
+        self.max_abs_err = max(self.max_abs_err, _abs_err(out, ref, True))
+        g = _first_diff(out, ref)
+        if g is not None:
+            raise SmokeError(f"{self.label}: K3 packed image differs first "
+                             f"at ray {g}: kernel {int(out[g])} plain "
+                             f"{int(ref[g])}")
+        self.checks += 1
+        return out
+
+
+def _bvh_fields(bvh) -> dict:
+    return dict(zip(("center", "radius", "color"), bvh.spheres),
+                **{f: getattr(bvh, f) for f in bvh._fields[1:]})
+
+
+def _traversal_cell(port, name: str):
+    """A scene's K3 tables on the card (default leaf size), C, K and the
+    camera."""
+    from raytracers_tpu_torch.geometry import camera
+    from raytracers_tpu_torch.render import traversal as tr
+    sc = port.scenes.by_name(name)
+    scene, C, K = tr.build_traversal_scene(sc.spheres)
+    cam = camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov, 1.0)
+    return scene, C, K, cam
+
+
+def phase_bvh_vs_plain(port) -> dict:
+    """The BVH build on the card against the CPU build, validation, K3
+    against its plain version, and K3 and ``render(mode="bvh")`` against
+    the goldens.  Returns the K3 checkers by scene."""
+    import torch
+    from raytracers_tpu_torch.bvh.lbvh import build_bvh
+    from raytracers_tpu_torch.geometry import Spheres
+    from raytracers_tpu_torch.render import traversal as tr
+    from raytracers_tpu_torch.render.api import prepare_scene, render
+    from raytracers_tpu_torch.utils.validate import validate_bvh
+    t0 = time.perf_counter()
+    builds = [(name, port.scenes.by_name(name).spheres, 8)
+              for name in ("rgbbox", "irreg", "plane")]
+    soup = port.scenes.random_spheres(BVH_SOUP[0], seed=BVH_SOUP[1])
+    builds += [("soup1m", soup, leaf) for leaf in BVH_LEAVES]
+    for name, sph, leaf in builds:
+        card = build_bvh(sph, leaf_size=leaf)
+        host = build_bvh(Spheres(*(f.cpu() for f in sph)), leaf_size=leaf)
+        for field, a in _bvh_fields(card).items():
+            b = _bvh_fields(host)[field]
+            if a.device != sph.center.device or not torch.equal(a.cpu(), b):
+                raise SmokeError(f"build_bvh {name} leaf {leaf}: field "
+                                 f"{field} differs from the CPU build")
+        if name in SCENES:
+            problems = validate_bvh(card)
+            if problems:
+                raise SmokeError(f"validate_bvh {name}: {problems}")
+        log(f"[bvh=cpu] {name} leaf {leaf}: {card.n_leaves} leaves, every "
+            f"field bit-equal to the CPU build"
+            + (", validate_bvh clean" if name in SCENES else ""))
+    del soup, builds
+
+    size = CHECK_SIZE
+    checkers = {}
+    for name in SCENES:
+        scene, C, K, cam = _traversal_cell(port, name)
+        chk = CheckedK3(tr, f"{name} {size}x{size}")
+        imgs = {}
+        for depth in (1, DEPTH):
+            for block in (None, (32, 16)):
+                imgs[depth, block] = tr.render_traversal(
+                    scene, C, K, cam, size, size, max_depth=depth,
+                    block=block, kernel=chk)
+        if not torch.equal(imgs[1, None], imgs[1, (32, 16)]):
+            raise SmokeError(f"{name}: K3 block-tiled image differs from "
+                             "the scanline one at depth 1")
+        log(f"[kernel=plain] {name} {size}x{size} C={C} K={K}: K3 "
+            f"{chk.checks} bit-equal comparisons (scanline+block d1/d{DEPTH})")
+        checkers[name] = chk
+        goldens = [g for g in GOLDENS if g[0] == name]
+        prep = prepare_scene(port.scenes.by_name(name), size, size)
+        for _, depth, fname, max_mis, max_delta in goldens:
+            _golden_check(f"K3 {name} d{depth}", imgs[depth, (32, 16)],
+                          fname, max_mis, max_delta)
+            img = render(prep, size, size, mode="bvh", max_depth=depth)
+            _golden_check(f"render(mode='bvh') {name} d{depth}", img, fname,
+                          max_mis, max_delta)
+    log(f"[bvh=cpu] phase 7 in {time.perf_counter() - t0:.1f} s")
+    return checkers
+
+
+def _k3_bound(stats: dict, table_bytes: int):
+    """Least time of one K3 render for this run's counted work: the
+    operations over the FP32 lane-op rate, or the bytes (the tables read
+    once, the packed image written once) over HBM, whichever is larger."""
+    count = dict(stats, hit_bounces=stats["ray_bounces"]
+                 - stats["sky_bounces"])
+    ops = sum(count[k] * n for k, n in K3_OPS.items())
+    ops_ms = ops / FP32_LANE_OPS_PER_S * 1e3
+    bytes_ms = (table_bytes + 4 * stats["rays"]) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def phase_bvh_main(port, checkers) -> list:
+    """The BVH main path: the 1M-sphere build, ``render(mode="bvh")`` and
+    K3 at SIZE, depth DEPTH, each result logged as a ``[bvh]`` line.
+    Returns K3's results."""
+    import torch
+    from raytracers_tpu_torch.bvh.lbvh import build_bvh
+    from raytracers_tpu_torch.render import megakernel as mk
+    from raytracers_tpu_torch.render import traversal as tr
+    from raytracers_tpu_torch.render.api import prepare_scene, render
+    from raytracers_tpu_torch.utils.timing import cuda_ms
+    soup = port.scenes.random_spheres(BVH_SOUP[0], seed=BVH_SOUP[1])
+    for leaf in BVH_LEAVES:
+        fn = lambda leaf=leaf: build_bvh(soup, leaf_size=leaf)  # noqa: E731
+        fn()                                                    # warm-up
+        ms = [cuda_ms(fn, warmup=0, runs=1) for _ in range(3)]
+        res = dict(what="build_bvh", spheres=BVH_SOUP[0], seed=BVH_SOUP[1],
+                   leaf_size=leaf, leaves=-(-BVH_SOUP[0] // leaf),
+                   build_ms=ms, build_ms_mean=sum(ms) / len(ms))
+        log(f"[bvh] {json.dumps(res)}")
+    del soup
+
+    for name in SCENES:
+        sc = port.scenes.by_name(name)
+        prep_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prep = prepare_scene(sc, SIZE, SIZE)
+            torch.cuda.synchronize()
+            prep_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        img = render(prep, SIZE, SIZE, mode="bvh", max_depth=DEPTH)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if img.shape != (SIZE, SIZE) or img.dtype != torch.int32:
+            raise SmokeError(f"{name}: bvh image {tuple(img.shape)} "
+                             f"{img.dtype}")
+        mk.megakernel.launches = tr.traversal_kernel.launches = 0
+        ms = [cuda_ms(lambda: render(prep, SIZE, SIZE, mode="bvh",
+                                     max_depth=DEPTH), warmup=0, runs=1)
+              for _ in range(2)]
+        if (mk.megakernel.launches, tr.traversal_kernel.launches) != (0, 0):
+            raise SmokeError(f"{name}: render(mode='bvh') launched a kernel")
+        res = dict(what="render(mode='bvh')", scene=name, size=SIZE,
+                   depth=DEPTH, leaf_size=8,
+                   leaves=prep.bvh.n_leaves, warm_up_s=warm_s,
+                   prepare_ms=prep_ms, render_ms=ms,
+                   render_ms_mean=sum(ms) / len(ms),
+                   mrays_per_s=SIZE * SIZE / (sum(ms) / len(ms)) / 1e3)
+        log(f"[bvh] {json.dumps(res)}")
+
+    k3 = []
+    for name in SCENES:
+        scene, C, K, cam = _traversal_cell(port, name)
+        call = lambda: tr.render_traversal(scene, C, K, cam, SIZE,  # noqa
+                                           SIZE, max_depth=DEPTH)
+        call()                                                  # warm-up
+        torch.cuda.synchronize()
+        tr.traversal_kernel.launches = 0
+        img = call()
+        torch.cuda.synchronize()
+        launches = tr.traversal_kernel.launches
+        if launches != 1:
+            raise SmokeError(f"{name}: one K3 render launched K3 "
+                             f"{launches} times")
+        render_ms = [cuda_ms(call, warmup=0, runs=REPEATS)
+                     for _ in range(3)]
+        timed = Timed(tr.traversal_kernel, 1)
+        for _ in range(REPEATS):
+            tr.render_traversal(scene, C, K, cam, SIZE, SIZE,
+                                max_depth=DEPTH, kernel=timed)
+        k3_ms = timed.phase_ms()[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_img, stats = tr.traversal_reference(
+            scene, C, K, cam, SIZE, SIZE, max_depth=DEPTH, with_stats=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        checkers[name].max_abs_err = max(
+            checkers[name].max_abs_err,
+            _abs_err(img.reshape(-1), plain_img.reshape(-1), True))
+        g = _first_diff(img.reshape(-1), plain_img.reshape(-1))
+        if g is not None:
+            raise SmokeError(f"{name}: the {SIZE}x{SIZE} K3 image differs "
+                             f"from the plain version's at pixel {g}")
+        table_bytes = sum(t.numel() * t.element_size()
+                          for t in (scene.inner, scene.leaf_skip,
+                                    scene.spheres))
+        bound_ms, bound_by = _k3_bound(stats, table_bytes)
+        mean_ms = sum(render_ms) / len(render_ms)
+        res = dict(what="K3 render_traversal", scene=name, size=SIZE,
+                   depth=DEPTH, clusters=C, leaf_size=K, tile=512,
+                   block=(32, 16), k3_launches=launches,
+                   render_ms=render_ms, render_ms_mean=mean_ms,
+                   mrays_per_s=SIZE * SIZE / mean_ms / 1e3, k3_ms=k3_ms,
+                   **stats, k3_bound_ms=bound_ms, k3_bound_by=bound_by,
+                   k3_bound_share=bound_ms / k3_ms, plain_ms=plain_ms)
+        log(f"[bvh] {json.dumps(res)}")
+        k3.append(res)
+    return k3
+
+
+def _kernels_record(checkers, diff_checkers, results, fb_results,
+                    k3_checkers, k3_results) -> list:
     """One entry per kernel and scene: K1 from the render main path, K1d
-    and K2 from the fwd+bwd main path; ``max_abs_err`` from the kernel
-    against plain checks (K2's includes its slot tables)."""
+    and K2 from the fwd+bwd main path, K3 from the BVH main path;
+    ``max_abs_err`` from the kernel against plain checks (K2's includes
+    its slot tables)."""
     from raytracers_tpu_torch.render import _cuda
     src = {k: str(_cuda.source(k).relative_to(ROOT)) for k in _cuda.KERNELS}
     where = f"{SIZE}x{SIZE} d{DEPTH}"
@@ -1060,6 +1308,16 @@ def _kernels_record(checkers, diff_checkers, results, fb_results) -> list:
             ms=r["k2_ms"], plain_ms=r["plain_k2_ms"],
             bound_ms=r["k2_bound_ms"], bound_by=r["k2_bound_by"],
             library_ms=r["k2_library_ms"]))
+    for r in k3_results:
+        out.append(dict(
+            name=f"K3 traversal ({r['scene']} {where})",
+            route="cuda", source=src["traversal"],
+            replaces="raytracers_tpu/render/pallas_traversal.py:116",
+            launches=r["k3_launches"],
+            max_abs_err=k3_checkers[r["scene"]].max_abs_err,
+            ms=r["k3_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["k3_bound_ms"], bound_by=r["k3_bound_by"],
+            library_ms=None))
     return out
 
 
@@ -1083,11 +1341,14 @@ def main() -> int:
         results = [phase_main_path(port, name, checkers[name])
                    for name in CELLS]
         fb_results = [phase_fwdbwd(port, name) for name in SCENES]
+        k3_checkers = phase_bvh_vs_plain(port)
+        k3_results = phase_bvh_main(port, k3_checkers)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": _kernels_record(checkers, diff_checkers,
-                                                 results, fb_results)}))
+    print(json.dumps({"kernels": _kernels_record(
+        checkers, diff_checkers, results, fb_results, k3_checkers,
+        k3_results)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,150 @@
+"""Command-line driver with the reference flag contract.
+
+Counterpart of ``raytracers_tpu.cli``.  Flags mirror the reference drivers
+(futhark/main.c:34-57): ``-m height -n width -f out.ppm -s rgbbox|irreg
+-r runs``, with ``--mode``, ``--leaf-size``, ``--depth``, ``--chunk``,
+``--cpu`` and ``--validate``.  It renders on the CUDA card, or with
+``--cpu`` through the plain PyTorch versions on the host:
+
+    python -m raytracers_tpu_torch.cli -m 200 -n 200 -s irreg -f out.ppm
+
+Output protocol of the reference driver:
+    Using scene <s> (-s to switch).
+    Timing over average of <r> runs (-r to change).
+    Scene BVH construction in <t>s.
+    Rendering in <t>s.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+# options of the JAX package's driver whose paths the port has not taken
+_NOT_PORTED = {
+    "shard": "ROADMAP queue 1, item 11 (sharding and inverse rendering)",
+    "native": "ROADMAP queue 1, item 12 (the native-oracle loader)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="raytracers-tpu-torch",
+                                description=__doc__.split("\n")[0])
+    p.add_argument("-m", dest="height", type=int, default=200,
+                   help="image height (reference -m)")
+    p.add_argument("-n", dest="width", type=int, default=200,
+                   help="image width (reference -n)")
+    p.add_argument("-f", dest="imgfile", default=None,
+                   help="write PPM (or PNG by extension) to this file "
+                        "(reference -f)")
+    p.add_argument("-s", dest="scene", default="rgbbox",
+                   help="scene: rgbbox | irreg | plane (reference -s)")
+    p.add_argument("-r", dest="runs", type=int, default=10,
+                   help="timed runs per phase (reference -r)")
+    p.add_argument("--mode", default="pallas",
+                   choices=["bvh", "brute", "pallas"],
+                   help="closest-hit engine (default: pallas, the "
+                        "megakernel)")
+    p.add_argument("--leaf-size", type=int, default=8,
+                   help="BVH leaf cluster size (spheres per leaf)")
+    p.add_argument("--depth", type=int, default=50,
+                   help="max bounce depth (reference: 50)")
+    p.add_argument("--chunk", type=int, default=None,
+                   help="rays per batch of the bvh and brute tracers "
+                        "(memory bound)")
+    p.add_argument("--cpu", action="store_true",
+                   help="run the plain PyTorch versions on the host")
+    p.add_argument("--shard", action="store_true",
+                   help="not ported: " + _NOT_PORTED["shard"])
+    p.add_argument("--native", action="store_true",
+                   help="not ported: " + _NOT_PORTED["native"])
+    p.add_argument("--validate", action="store_true",
+                   help="run BVH/scene invariant checks before rendering")
+    return p
+
+
+def _seconds(fn, device, runs: int, warmup: int = 2) -> float:
+    """Average host seconds of ``fn()``, the card drained at both ends."""
+    import torch
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / runs
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for flag, where in _NOT_PORTED.items():
+        if getattr(args, flag):
+            parser.error(f"--{flag} is not ported to raytracers_tpu_torch "
+                         f"yet: {where}")
+
+    from . import scenes
+    from .bvh.lbvh import build_bvh
+    from .image import write_image
+    from .render.api import prepare_scene, render
+    from .utils.platform import resolve_device
+    from .utils.validate import validate_bvh, validate_spheres
+
+    try:
+        device = resolve_device("cpu" if args.cpu else None)
+        scene = scenes.by_name(args.scene, device=device)
+    except RuntimeError as e:
+        print(f"{e} (the --cpu flag)", file=sys.stderr)
+        return 1
+    except ValueError as e:
+        # reference driver behaviour: a message and a nonzero exit
+        # (futhark/main.c:78-81), not a traceback
+        print(e, file=sys.stderr)
+        return 1
+    if args.validate:
+        problems = validate_spheres(scene.spheres) + validate_bvh(
+            build_bvh(scene.spheres, leaf_size=args.leaf_size))
+        if problems:
+            print("VALIDATION FAILED:", *problems, sep="\n  ",
+                  file=sys.stderr)
+            return 2
+        print("validation: scene and BVH invariants OK", file=sys.stderr)
+    print(f"Using scene {args.scene} (-s to switch).")
+    print(f"Timing over average of {args.runs} runs (-r to change).")
+
+    def prepare():
+        return prepare_scene(scene, args.height, args.width,
+                             leaf_size=args.leaf_size,
+                             with_pallas=args.mode == "pallas",
+                             device=device)
+
+    bvh_s = _seconds(prepare, device, args.runs)
+    print(f"Scene BVH construction in {bvh_s:f}s.")
+    prep = prepare()
+
+    def draw():
+        return render(prep, args.height, args.width, mode=args.mode,
+                      max_depth=args.depth, chunk=args.chunk)
+
+    render_s = _seconds(draw, device, args.runs)
+    print(f"Rendering in {render_s:f}s.")
+    rays = args.width * args.height / render_s
+    print(f"({rays / 1e6:.1f} Mrays/s on {device.type})", file=sys.stderr)
+    img = draw()
+
+    if args.imgfile is None:
+        print("-f not passed, so not writing image to file")
+    else:
+        print(f"Writing image to {args.imgfile}.")
+        write_image(args.imgfile, img)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""L4 image handling: colour -> packed-pixel quantization and P3 PPM I/O.
+"""L4 image handling: colour -> packed-pixel quantization, PPM and PNG I/O.
 
 Counterpart of ``raytracers_tpu.image``: each channel is ``int(255.99 * c)``
 (truncation toward zero, no clamp) packed as ``(r<<16)|(g<<8)|b`` in one
@@ -36,6 +36,21 @@ def image_to_ppm_bytes(img) -> bytes:
 def write_ppm(path: str, img) -> None:
     with open(path, "wb") as f:
         f.write(image_to_ppm_bytes(img))
+
+
+def write_png(path: str, img) -> None:
+    """PNG output (the reference's Haskell variant writes PNG,
+    haskell/ray.hs:25); requires PIL."""
+    from PIL import Image
+    Image.fromarray(pixel_to_rgb(img)).save(path)
+
+
+def write_image(path: str, img) -> None:
+    """Write PPM or PNG by the file extension."""
+    if path.lower().endswith(".png"):
+        write_png(path, img)
+    else:
+        write_ppm(path, img)
 
 
 def read_ppm(path: str) -> np.ndarray:

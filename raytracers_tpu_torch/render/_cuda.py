@@ -38,6 +38,8 @@ KERNELS = {
     "replay_bwd": ("replay_bwd.cu", "rt_replay_bwd_launch",
                    [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                     _p]),
+    "traversal": ("traversal.cu", "rt_traversal_launch",
+                  [_p, _p, _p, _p, _i, _i, _i, _i, _p, _i, _i, _i, _p]),
 }
 
 _lock = threading.Lock()

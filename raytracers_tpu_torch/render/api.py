@@ -1,13 +1,16 @@
 """Public rendering API: prepare_scene / render (futhark/ray.fut:239-247).
 
 Counterpart of ``raytracers_tpu.render.api``.  ``prepare_scene`` builds the
-camera and the megakernel's scene layout once, on ``device`` (default: the
-CUDA card); ``render`` runs where the prepared tensors live.
+camera, the LBVH and, on request, the megakernel's scene layout once, on
+``device`` (default: the CUDA card); ``render`` runs where the prepared
+tensors live.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+from ..bvh.lbvh import Bvh, build_bvh
+from ..bvh import traverse
 from ..geometry import MAX_DEPTH, Camera, Spheres, camera
 from ..scenes import Scene
 from ..utils.platform import resolve_device
@@ -16,34 +19,42 @@ from .megakernel import (PallasScene, build_pallas_scene, render_pallas,
                          render_pallas_record, render_pallas_twophase)
 from .tracer import render_colours, render_packed
 
-_NO_BVH = ("the BVH path (build_bvh, mode='bvh') is not ported yet "
-           "(ROADMAP queue 1, item 12); use with_bvh=False")
-
 
 class PreparedScene(NamedTuple):
     """Camera + scene layouts, ready to render."""
     spheres: Spheres      # original order
-    bvh: None             # the BVH is not ported: always None
+    bvh: Bvh | None       # None when built with with_bvh=False
     cam: Camera
     pallas: PallasScene | None = None
 
 
 def prepare_scene(scene: Scene, height: int, width: int,
-                  with_pallas: bool = False, with_bvh: bool = True,
-                  device=None) -> PreparedScene:
-    """Build the camera (vup=(0,1,0), aspect w/h) and, with ``with_pallas``,
-    the megakernel layout with clusters front-to-back from the camera.
-    ``with_bvh=True``, the JAX package's default, needs the BVH, which is
-    not ported yet: pass ``with_bvh=False``."""
-    if with_bvh:
-        raise NotImplementedError(_NO_BVH)
+                  leaf_size: int = 8, with_pallas: bool = False,
+                  with_bvh: bool = True, device=None) -> PreparedScene:
+    """Build the camera (vup=(0,1,0), aspect w/h), with ``with_bvh`` the
+    LBVH over clusters of ``leaf_size`` spheres (``mode="bvh"``), and with
+    ``with_pallas`` the megakernel layout with clusters front-to-back from
+    the camera (``mode="pallas"``)."""
     device = resolve_device(device)
     spheres = Spheres(*(f.to(device) for f in scene.spheres))
     cam = camera(scene.look_from, scene.look_at, (0.0, 1.0, 0.0), scene.fov,
                  width / height, device=device)
+    bvh = build_bvh(spheres, leaf_size=leaf_size) if with_bvh else None
     pallas = (build_pallas_scene(spheres, sort_origin=scene.look_from)
               if with_pallas else None)
-    return PreparedScene(spheres=spheres, bvh=None, cam=cam, pallas=pallas)
+    return PreparedScene(spheres=spheres, bvh=bvh, cam=cam, pallas=pallas)
+
+
+def _oracle(prepared: PreparedScene, mode: str):
+    """The tracer's closest-hit function of ``mode`` "bvh" or "brute"."""
+    if mode == "bvh":
+        if prepared.bvh is None:
+            raise ValueError("prepare_scene(..., with_bvh=True) required "
+                             "for mode='bvh'")
+        return traverse.make_closest_hit(prepared.bvh)
+    if mode == "brute":
+        return bruteforce.make_closest_hit(prepared.spheres)
+    raise ValueError(f"unknown render mode: {mode}")
 
 
 def pallas_config(C: int):
@@ -103,18 +114,14 @@ def render(prepared: PreparedScene, height: int, width: int,
     ``mode="pallas"`` runs the megakernel with the scene class's config,
     scene-scale layouts (C > 128) through the two-level cull; ``schedule``
     (or the single boundary ``phase1_depth``) overrides the class's
-    compaction schedule of deep renders.  ``mode="brute"`` is the
-    all-pairs tracer; ``chunk`` bounds its batch."""
+    compaction schedule of deep renders.  ``mode="bvh"`` is the tracer
+    over the skip-link walk, ``mode="brute"`` the all-pairs tracer;
+    ``chunk`` bounds their batch of rays."""
     if mode == "pallas":
         return _render_pallas(prepared, height, width, max_depth, False,
                               phase1_depth, schedule)
-    if mode == "brute":
-        return render_packed(bruteforce.make_closest_hit(prepared.spheres),
-                             prepared.spheres, prepared.cam, width, height,
-                             max_depth, chunk)
-    if mode == "bvh":
-        raise NotImplementedError(_NO_BVH)
-    raise ValueError(f"unknown render mode: {mode}")
+    return render_packed(_oracle(prepared, mode), prepared.spheres,
+                         prepared.cam, width, height, max_depth, chunk)
 
 
 def render_stats(prepared: PreparedScene, height: int, width: int,
@@ -135,7 +142,8 @@ def render_float(prepared: PreparedScene, height: int, width: int,
     ``mode="pallas"`` runs the megakernel in record mode (K1d), one launch
     at the default tile, as the JAX package does; gradients through it come
     from ``grad.pallas_diff.make_render_pallas_diff``.  ``mode="brute"`` is
-    the all-pairs tracer."""
+    the all-pairs tracer, ``mode="bvh"`` the tracer over the skip-link
+    walk."""
     if mode == "pallas":
         if prepared.pallas is None:
             raise ValueError("prepare_scene(..., with_pallas=True) required "
@@ -143,10 +151,5 @@ def render_float(prepared: PreparedScene, height: int, width: int,
         colours, _ = render_pallas_record(prepared.pallas, prepared.cam,
                                           width, height, max_depth=max_depth)
         return colours
-    if mode == "brute":
-        return render_colours(bruteforce.make_closest_hit(prepared.spheres),
-                              prepared.spheres, prepared.cam, width, height,
-                              max_depth, chunk)
-    if mode == "bvh":
-        raise NotImplementedError(_NO_BVH)
-    raise ValueError(f"unknown render mode: {mode}")
+    return render_colours(_oracle(prepared, mode), prepared.spheres,
+                          prepared.cam, width, height, max_depth, chunk)

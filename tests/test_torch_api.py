@@ -84,12 +84,18 @@ def test_render_stats(depth):
 
 
 def test_not_ported_paths_raise():
+    """The BVH path runs (the JAX defaults build the tree, and
+    ``mode="bvh"`` renders through it; without the tree it raises JAX's
+    ValueError); unknown modes and a missing megakernel layout raise."""
     sc = tscenes.rgbbox(device=CPU)
-    with pytest.raises(NotImplementedError, match="BVH"):
-        tapi.prepare_scene(sc, 8, 8, with_pallas=True, device=CPU)
+    both = tapi.prepare_scene(sc, 8, 8, with_pallas=True, device=CPU)
+    assert both.bvh.n_leaves == 50 and both.pallas is not None
+    img = tapi.render(both, 8, 8, mode="bvh", max_depth=1)
+    assert torch.equal(img, tapi.render(both, 8, 8, mode="brute",
+                                        max_depth=1))
     prep = tapi.prepare_scene(sc, 8, 8, with_pallas=True, with_bvh=False,
                               device=CPU)
-    with pytest.raises(NotImplementedError, match="BVH"):
+    with pytest.raises(ValueError, match="with_bvh=True"):
         tapi.render(prep, 8, 8, mode="bvh")
     with pytest.raises(ValueError, match="unknown"):
         tapi.render(prep, 8, 8, mode="nope")

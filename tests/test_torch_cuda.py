@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: K1 (all
-modes, K1d's records included) and K2, the backward replay.
+modes, K1d's records included), K2, the backward replay, and K3, the
+per-ray traversal; and the BVH build on the card against the CPU build.
 
 These tests need an NVIDIA card and skip without one (the kernels are CUDA
 and have no CPU mode; the plain versions' tests against the JAX package run
@@ -16,8 +17,10 @@ import torch
 from raytracers_tpu_torch import geometry as tgeo
 from raytracers_tpu_torch import scenes as tscenes
 from raytracers_tpu_torch.grad import replay_bwd as trb
+from raytracers_tpu_torch.bvh.lbvh import build_bvh
 from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
 from raytracers_tpu_torch.render import megakernel as tmk
+from raytracers_tpu_torch.render import traversal as ttr
 from raytracers_tpu_torch.render.api import pallas_config, pallas_diff_config
 
 pytestmark = pytest.mark.cuda
@@ -256,3 +259,35 @@ def test_scene_scale_record_kernel_equals_plain(cuda):
     tmk.render_pallas_record(ps, cam, SIZE, SIZE, max_depth=5, tile=256,
                              with_pay=True, block=(16, 16), kernel=both)
     assert both.launches == 1
+
+
+@pytest.mark.parametrize("depth", [1, 50])
+@pytest.mark.parametrize("block", [None, (32, 16)])
+@pytest.mark.parametrize("far_root", [True, False])
+@pytest.mark.parametrize("name", ["rgbbox", "irreg"])
+def test_traversal_kernel_equals_plain(cuda, name, far_root, block, depth):
+    """K3: one launch a render, the image bit-equal to the plain
+    version's on the same tables."""
+    sc = tscenes.by_name(name, device=cuda)
+    scene, C, K = ttr.build_traversal_scene(sc.spheres)
+    cam = tgeo.camera(sc.look_from, sc.look_at, (0., 1., 0.), sc.fov, 1.0,
+                      device=cuda)
+    kw = dict(max_depth=depth, far_root=far_root, block=block)
+    before = ttr.traversal_kernel.launches
+    img = ttr.render_traversal(scene, C, K, cam, SIZE, SIZE, **kw)
+    assert ttr.traversal_kernel.launches == before + 1
+    ref = ttr.traversal_reference(scene, C, K, cam, SIZE, SIZE, **kw)
+    torch.cuda.synchronize()
+    assert img.device.type == "cuda" and torch.equal(img, ref)
+
+
+@pytest.mark.parametrize("leaf_size", [1, 8, 128])
+@pytest.mark.parametrize("name", ["rgbbox", "irreg", "soup"])
+def test_bvh_build_on_card_equals_cpu(cuda, name, leaf_size):
+    sph = (tscenes.random_spheres(50_000, seed=0, device=cuda)
+           if name == "soup" else tscenes.by_name(name, device=cuda).spheres)
+    card = build_bvh(sph, leaf_size=leaf_size)
+    host = build_bvh(tgeo.Spheres(*(f.cpu() for f in sph)),
+                     leaf_size=leaf_size)
+    for a, b in zip((*card.spheres, *card[1:]), (*host.spheres, *host[1:])):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

@@ -200,8 +200,13 @@ def test_render_float_pallas_vs_jax(name):
     assert _ulps(col.numpy(), np.asarray(want)).max() <= 1
     brute = tapi.render_float(port, size, size, mode="brute", max_depth=1)
     assert (brute - col).abs().max() < 1e-6
-    with pytest.raises(NotImplementedError, match="BVH"):
+    with pytest.raises(ValueError, match="with_bvh=True"):
         tapi.render_float(port, size, size, mode="bvh")
+    # with the tree, the BVH tracer's floats equal the brute tracer's here
+    bvh_port = tapi.prepare_scene(tscenes.by_name(name, device=CPU), size,
+                                  size, device=CPU)
+    assert torch.equal(tapi.render_float(bvh_port, size, size, mode="bvh",
+                                         max_depth=1), brute)
 
 
 @pytest.mark.parametrize("C", [1, 4, 16, 17, 79, 128])
