@@ -63,7 +63,29 @@ a failed phase exits non-zero before the final line:
    both scenes at 1000x1000, depth 50, default tile and blocks: launches
    counted from zero around one render, 3 rounds of 5 renders, the kernel's
    time by CUDA events, the plain version's time and counters on the card,
-   the bound, and the image bit-equal to the plain version's.
+   the bound, and the image bit-equal to the plain version's;
+9. K1f (``[k1f]`` lines): at 200x200, K1 at cluster widths 64 and 32 (irreg
+   then takes the two-level cull) and near root only (``far_root=False``),
+   scanline and block, depth 1 and 50, and the class schedule; the forced
+   occlusion gate (``occl_cont``) with ``coherent`` repacking, and
+   ``seg_tiles`` + ``tile2`` + ``lane_groups``; K1d at W = 64; every launch
+   bit-equal to the plain version; the engine at W = 64 with every K2
+   launch checked as in phase 3 and its gradients against the W = 128
+   engine's.  Then the render cells at 1000x1000, depth 50, with the
+   default render's config, for both scenes: (a) W = 64, (b) W = 32,
+   (c) ``far_root=False``, (d) ``coherent`` + ``occl_cont``, (e)
+   ``seg_tiles=8, tile2=512, lane_groups=2``, each measured as phase 5
+   measures (launches, 3 rounds of 5 renders, per-phase K1 time, counters,
+   bound, the plain version's image bit-equal) and held to the default
+   render: (e) and ``coherent`` alone bit-equal, the others within the
+   depth-50 golden tolerances, with the differing pixels printed.  The
+   fwd+bwd step at W = 64 as phase 6 measures it.  Last,
+   ``backward="xla"`` on rgbbox at depth 50 with 8 ray chunks, unsorted and
+   sorted by depth (the largest side of 1000, 707, 500 whose warm-up step
+   takes at most 60 s): step times, peak memory, the sorted gradients
+   against the unsorted ones, the gap to ``backward="pallas"`` over the
+   whole image (printed), and over the pixels whose float64 replay gives
+   their float32 colour within 1e-6 (held to the tests' tolerances).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -104,6 +126,7 @@ FP32_LANE_OPS_PER_S = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
 # lane operations per unit of counted work, counted in csrc/megakernel.cu
 OPS_PER_SLOT = 30               # one (ray, sphere) test of the visit loop
+OPS_PER_SLOT_NEAR = 27          # the same, near-root search (far_root=False)
 OPS_PER_CULL_ROW = 25           # one AABB slab test and occlusion gate
 OPS_PER_BOUNCE = 60             # per-bounce set-up, readback and shading
 STATE_BYTES = 13 * 4            # the ray state a phase reads or writes
@@ -509,9 +532,10 @@ def phase_scene_scale_vs_plain(port) -> dict:
     return checkers
 
 
-def _diff_scene(port, name: str, size: int):
+def _diff_scene(port, name: str, size: int, cluster_width=None):
     """A scene's or soup's spheres and camera on the card, as a user of the
-    fwd+bwd engine passes them, the engine's layout and its class config."""
+    fwd+bwd engine passes them, the engine's layout (at ``cluster_width``)
+    and the class config of its default (128-wide) layout."""
     from raytracers_tpu_torch.geometry import camera
     from raytracers_tpu_torch.render.api import pallas_diff_config
     from raytracers_tpu_torch.render.megakernel import build_pallas_scene
@@ -521,19 +545,22 @@ def _diff_scene(port, name: str, size: int):
         sc = port.scenes.by_name(name)
         spheres = sc.spheres
         cam = camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov, 1.0)
-    layout = build_pallas_scene(spheres)
-    return spheres, cam, layout, pallas_diff_config(layout.n_clusters)
+    layout = build_pallas_scene(spheres, cluster_width=cluster_width)
+    default = (layout if cluster_width is None
+               else build_pallas_scene(spheres))
+    return spheres, cam, layout, pallas_diff_config(default.n_clusters)
 
 
-def _grads(f, spheres, cam):
-    """One fwd+bwd step: loss = sum(f(spheres, cam) ** 2), backward; returns
-    the image and the gradients (centre, radius, colour, then the camera's
-    origin, llc, horizontal, vertical)."""
+def _grads(f, spheres, cam, weight=None):
+    """One fwd+bwd step: loss = sum(f(spheres, cam) ** 2), each pixel times
+    ``weight`` if given, backward; returns the image and the gradients
+    (centre, radius, colour, then the camera's origin, llc, horizontal,
+    vertical)."""
     from raytracers_tpu_torch.geometry import Camera, Spheres
     sph = Spheres(*(t.detach().requires_grad_(True) for t in spheres))
     c = Camera(*(t.detach().requires_grad_(True) for t in cam))
     img = f(sph, c)
-    (img * img).sum().backward()
+    (img * img if weight is None else img * img * weight).sum().backward()
     return img.detach(), [t.grad for t in (*sph, *c)]
 
 
@@ -671,12 +698,14 @@ def _device_profile(fn) -> dict | None:
                 gaps_next_to_k1_ms=k1_gap_ms)
 
 
-def _k1_bound(stats: dict, n_phases: int, n_rays: int, table_bytes: int):
+def _k1_bound(stats: dict, n_phases: int, n_rays: int, table_bytes: int,
+              far_root: bool = True):
     """Least time K1 could take for one render's counted work: operations
     over the FP32 lane-op rate, or the bytes over HBM (the ray state each
     phase must read and write, the scene's tables read once), whichever is
-    larger."""
-    ops = (stats["slot_tests"] * OPS_PER_SLOT
+    larger.  A slot test costs what the launch's search costs."""
+    ops = (stats["slot_tests"] * (OPS_PER_SLOT if far_root
+                                  else OPS_PER_SLOT_NEAR)
            + stats["cull_rows"] * OPS_PER_CULL_ROW
            + stats["ray_bounces"] * OPS_PER_BOUNCE)
     nbytes = STATE_BYTES * n_rays * (2 * n_phases - 1) + table_bytes
@@ -918,19 +947,21 @@ def _index_add_ms(captured, n_slots: int) -> float:
     return total
 
 
-def phase_fwdbwd(port, name: str) -> dict:
-    """The fwd+bwd main path at SIZE, depth DEPTH."""
+def phase_fwdbwd(port, name: str, cluster_width=None,
+                 tag: str = "fwdbwd") -> dict:
+    """The fwd+bwd main path at SIZE, depth DEPTH, the engine's layout at
+    ``cluster_width``; the result is logged as a ``[tag]`` line."""
     import torch
     from raytracers_tpu_torch.grad import replay_bwd as rb
     from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
     from raytracers_tpu_torch.render import megakernel as mk
     from raytracers_tpu_torch.utils.timing import cuda_ms
     spheres, cam, ps, (tile, block, schedule, prefix) = _diff_scene(
-        port, name, SIZE)
+        port, name, SIZE, cluster_width)
     n_phases = len(schedule) + 1
     n_slots = ps.order.numel()
     cfg = dict(max_depth=DEPTH, tile=tile, block=block, schedule=schedule,
-               sort_prefix=prefix)
+               sort_prefix=prefix, cluster_width=cluster_width)
     f = make_render_pallas_diff(SIZE, SIZE, **cfg)
     step = lambda: _grads(f, spheres, cam)                      # noqa: E731
 
@@ -1022,7 +1053,8 @@ def phase_fwdbwd(port, name: str) -> dict:
                          f"plain engine's by {cam_rel} of its max")
     share = sph_err / torch.where(bound > 0, bound, 1.0)
 
-    res = dict(scene=name, clusters=ps.n_clusters, tile=tile, block=block,
+    res = dict(scene=name, clusters=ps.n_clusters,
+               cluster_width=ps.cluster_width, tile=tile, block=block,
                schedule=schedule, sort_prefix=prefix,
                fwdbwd_ms=fwdbwd_ms, fwdbwd_ms_mean=mean_ms,
                k1d_launches=launches[0], k2_launches=launches[1],
@@ -1046,7 +1078,7 @@ def phase_fwdbwd(port, name: str) -> dict:
                sphere_grad_err_share_of_bound=float(share.max()),
                camera_grad_rel_err=cam_rel,
                loss=float((img * img).sum()), profile=profiled)
-    log(f"[fwdbwd] {json.dumps(res)}")
+    log(f"[{tag}] {json.dumps(res)}")
     return res
 
 
@@ -1265,10 +1297,389 @@ def phase_bvh_main(port, checkers) -> list:
     return k3
 
 
+def _golden_limits(name: str):
+    """The depth-DEPTH golden tolerances of a scene: (mismatch share, mean
+    |drgb|)."""
+    return next((m, d) for n, depth, _, m, d in GOLDENS
+                if n == name and depth == DEPTH)
+
+
+def _image_gap(img, ref) -> tuple:
+    """Differing pixels, their share and the mean |drgb| of two packed
+    images."""
+    import torch
+    diff = img != ref
+    ch = [((img >> s) & 0xFF) - ((ref >> s) & 0xFF) for s in (16, 8, 0)]
+    delta = float(torch.stack(ch).abs().double().mean())
+    return int(diff.sum()), float(diff.double().mean()), delta
+
+
+def _k1f_layout(sc, default_ps, width):
+    """A scene's render layout at ``width`` (front to back, as
+    prepare_scene builds it), or, for None, the prepared 128-wide one."""
+    from raytracers_tpu_torch.render import megakernel as mk
+    if width is None:
+        return default_ps
+    return mk.build_pallas_scene(sc.spheres, sort_origin=sc.look_from,
+                                 cluster_width=width)
+
+
+def _k1f_vs_plain(port) -> dict:
+    """Phase 9's checks at CHECK_SIZE: K1 at W = 64 and 32, near root only,
+    the forced gate and the compaction options, and K1d at W = 64, every
+    launch bit-equal to its plain version; the engine at W = 64 with every
+    K2 launch checked.  Returns the checkers by (mode, scene)."""
+    import torch
+    from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+    from raytracers_tpu_torch.render import megakernel as mk
+    from raytracers_tpu_torch.render.api import pallas_config
+    size = CHECK_SIZE
+    checkers = {}
+    for name in SCENES:
+        t0 = time.perf_counter()
+        prep = _prepare(port, name, size)
+        sc = port.scenes.by_name(name)
+        cam = prep.cam
+        tile, block, schedule, prefix = pallas_config(prep.pallas.n_clusters)
+        kw = dict(tile=tile, with_stats=True)
+        two_kw = dict(max_depth=DEPTH, tile=tile, block=block,
+                      schedule=schedule, sort_prefix=prefix)
+        for mode, width, opts in (("W=64", 64, {}), ("W=32", 32, {}),
+                                  ("near-root", None,
+                                   dict(far_root=False))):
+            ps = _k1f_layout(sc, prep.pallas, width)
+            chk = Checked(mk, f"{name} {size}x{size} K1 {mode}")
+            imgs = {}
+            for depth in (1, DEPTH):
+                for blk in (None, block):
+                    imgs[depth, blk], _ = mk.render_pallas(
+                        ps, cam, size, size, max_depth=depth, block=blk,
+                        kernel=chk, **kw, **opts)
+            chk.compare("block-tiled image against scanline",
+                        imgs[1, block].reshape(-1), imgs[1, None].reshape(-1))
+            two = mk.render_pallas_twophase(ps, cam, size, size, kernel=chk,
+                                            **two_kw, **opts)
+            chk.compare("multi-phase image against single-phase",
+                        two.reshape(-1), imgs[DEPTH, block].reshape(-1))
+            checkers[mode, name] = chk
+        chk = Checked(mk, f"{name} {size}x{size} K1f options")
+        one = mk.render_pallas(prep.pallas, cam, size, size, max_depth=DEPTH,
+                               tile=tile, block=block)
+        for opts in (dict(coherent=True, occl_cont=True),
+                     dict(seg_tiles=8, tile2=512, lane_groups=2),
+                     dict(coherent=True)):
+            img = mk.render_pallas_twophase(prep.pallas, cam, size, size,
+                                            kernel=chk, with_stats=True,
+                                            **two_kw, **opts)[0]
+            if "occl_cont" not in opts:
+                chk.compare(f"{opts} image against one launch",
+                            img.reshape(-1), one.reshape(-1))
+        checkers["options", name] = chk
+
+        # K1d and K2 at W = 64, on the engine's unsorted layout
+        spheres, dcam, ps64, (dtile, dblock, dsched, dpref) = _diff_scene(
+            port, name, size, 64)
+        k1 = Checked(mk, f"{name} {size}x{size} K1d W=64")
+        k2 = CheckedK2(f"{name} {size}x{size} W=64")
+        for blk in (None, dblock):
+            mk.render_pallas_record(ps64, dcam, size, size, max_depth=DEPTH,
+                                    tile=dtile, with_pay=True, block=blk,
+                                    kernel=k1)
+        cfg = dict(max_depth=DEPTH, tile=dtile, block=dblock,
+                   schedule=dsched, sort_prefix=dpref)
+        img64, g64 = _grads(make_render_pallas_diff(
+            size, size, cluster_width=64, fwd_kernel=k1, bwd_kernel=k2,
+            **cfg), spheres, dcam)
+        img128, g128 = _grads(make_render_pallas_diff(size, size, **cfg),
+                              spheres, dcam)
+        k1.compare("W=64 engine colours against W=128",
+                   img64.reshape(-1), img128.reshape(-1))
+        for a, b in zip(g128, g64):
+            if not torch.isfinite(b).all() or b.abs().max() == 0:
+                raise SmokeError(f"{name}: a W=64 engine gradient is not "
+                                 "finite or is zero")
+            rel = float((a - b).abs().max() / a.abs().max())
+            if rel > 1e-3:
+                raise SmokeError(f"{name}: the W=64 engine's gradient differs "
+                                 f"from the W=128 one by {rel} of its max")
+        checkers["K1d W=64", name] = k1
+        checkers["K2 W=64", name] = k2
+        log(f"[k1f] {name} {size}x{size}: K1 W=64/W=32/near-root "
+            + "/".join(str(checkers[m, name].checks)
+                       for m in ("W=64", "W=32", "near-root"))
+            + f", options {chk.checks}, K1d W=64 {k1.checks}, K2 W=64 "
+            f"{k2.checks} comparisons bit-equal (slot tables within "
+            f"{k2.table_err_share:.3f} of their bound) in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return checkers
+
+
+# phase 9's render cells: name -> (cluster width, render_pallas_twophase
+# options, the TPU kernel's lines the mode replaces, bit-equal to the
+# default render)
+K1F_CELLS = {
+    "W=64": (64, {}, "634", False),
+    "W=32": (32, {}, "634", False),
+    "near-root": (None, dict(far_root=False), "672", False),
+    "coherent+occl_cont": (None, dict(coherent=True, occl_cont=True), "725",
+                           False),
+    "seg_tiles+tile2+lane_groups": (
+        None, dict(seg_tiles=8, tile2=512, lane_groups=2), "442", True),
+}
+
+
+def _k1f_cell(port, default: Cell, mode: str, checker, default_img) -> dict:
+    """One render cell of phase 9 at SIZE, depth DEPTH, with the default
+    render's config: launches, times, counters, bound, the image against
+    the plain version (bit-equal) and against the default render."""
+    import torch
+    from raytracers_tpu_torch.render import megakernel as mk
+    from raytracers_tpu_torch.utils.timing import cuda_ms
+    width, opts, _, exact = K1F_CELLS[mode]
+    name = default.name
+    ps = _k1f_layout(port.scenes.by_name(name), default.ps, width)
+    tile, block, schedule, prefix = default.config
+    n_phases = default.n_phases
+
+    def render(kernel=mk.megakernel, with_stats=False):
+        return mk.render_pallas_twophase(
+            ps, default.cam, SIZE, SIZE, max_depth=DEPTH, tile=tile,
+            block=block, schedule=schedule, sort_prefix=prefix,
+            with_stats=with_stats, kernel=kernel, **opts)
+
+    render()                                                    # warm-up
+    torch.cuda.synchronize()
+    mk.megakernel.launches = 0
+    img = render()
+    torch.cuda.synchronize()
+    launches = mk.megakernel.launches
+    if launches != n_phases:
+        raise SmokeError(f"{name} {mode}: the render launched K1 {launches} "
+                         f"times, not {n_phases}")
+    render_ms = [cuda_ms(render, warmup=0, runs=REPEATS) for _ in range(3)]
+    mean_ms = sum(render_ms) / len(render_ms)
+    timed = Timed(mk.megakernel, n_phases)
+    for _ in range(REPEATS):
+        render(timed)
+    k1_phase_ms = timed.phase_ms()
+    k1_ms = sum(k1_phase_ms)
+    _, stats = render(with_stats=True)
+    bound_ms, bound_by = _k1_bound(stats, n_phases, default.n_rays,
+                                   _table_bytes(ps),
+                                   opts.get("far_root", True))
+    plain = Timed(mk.megakernel_reference, n_phases)
+    plain_img = render(plain)
+    checker.compare(f"{SIZE}x{SIZE} {mode} image against the plain render",
+                    img.reshape(-1), plain_img.reshape(-1))
+    n_diff, share, delta = _image_gap(img, default_img)
+    max_share, max_delta = (0.0, 0.0) if exact else _golden_limits(name)
+    if share > max_share or delta > max_delta:
+        raise SmokeError(f"{name} {mode}: {n_diff} pixels ({share}, mean "
+                         f"|drgb| {delta}) differ from the default render, "
+                         f"over ({max_share}, {max_delta})")
+    res = dict(scene=name, mode=mode, size=SIZE, depth=DEPTH,
+               cluster_width=ps.cluster_width, clusters=ps.n_clusters,
+               cull_blocks=ps.aabbT.shape[0], options=opts, tile=tile,
+               block=block, schedule=schedule, sort_prefix=prefix,
+               render_ms=render_ms, render_ms_mean=mean_ms,
+               mrays_per_s=SIZE * SIZE / mean_ms / 1e3,
+               k1_launches=launches, k1_phase_ms=k1_phase_ms, k1_ms=k1_ms,
+               sort_and_glue_ms=mean_ms - k1_ms,
+               slot_tests=stats["slot_tests"],
+               ray_bounces=stats["ray_bounces"],
+               cull_rows=stats["cull_rows"],
+               phase_slot_tests=stats["phase_slot_tests"],
+               k1_bound_ms=bound_ms, k1_bound_by=bound_by,
+               k1_bound_share=bound_ms / k1_ms,
+               plain_k1_ms=sum(plain.phase_ms()),
+               pixels_differing_from_default=n_diff,
+               share_differing_from_default=share,
+               mean_drgb_from_default=delta)
+    log(f"[k1f] {json.dumps(res)}")
+    return res
+
+
+# the xla backward's cell: scene, ray chunks, the largest side a step may
+# take and the time a step may take there before the side shrinks
+XLA_SCENE, XLA_CHUNKS, XLA_MAX_STEP_S = "rgbbox", 8, 60.0
+XLA_SIDES = (SIZE, 707, 500)
+# tests/test_torch_pallas_diff.py's tolerances between the two backends,
+# relative to the largest magnitude: centre, radius, colour, then the
+# camera's origin, llc, horizontal, vertical
+XLA_TOLS = (1e-2, 1e-2, 3e-3, 3e-3, 3e-3, 3e-3, 3e-3)
+# a pixel is well conditioned where a float64 replay of its recorded path
+# gives its float32 colour within this
+WELL_CONDITIONED_ERR = 1e-6
+
+
+def _well_conditioned(spheres, cam, side: int, tile: int):
+    """(side, side, 1) float32 weights: 1 at the pixels whose float64 replay
+    of the path K1d records (``grad.diff_render.replay_paths``) reproduces
+    the float32 colour within WELL_CONDITIONED_ERR, else 0.  The others'
+    gradients are those of near-tangent float32 re-intersections, which the
+    two backends amplify differently."""
+    import torch
+    from raytracers_tpu_torch.geometry import Camera, Spheres
+    from raytracers_tpu_torch.grad import pallas_diff as pd
+    from raytracers_tpu_torch.grad.diff_render import replay_paths
+    from raytracers_tpu_torch.render.megakernel import megakernel
+    from raytracers_tpu_torch.render.tracer import primary_rays
+    engine = pd._ReplayEngine(side, side, DEPTH, tile, "take", False, 1,
+                              False, None, megakernel)
+    with torch.no_grad():
+        colours, rec = engine.forward(spheres, cam)
+        idxs, events = pd._rec_to_path(rec)
+        o, d = primary_rays(Camera(*(t.double() for t in cam)), side, side)
+        col = replay_paths(Spheres(*(t.double() for t in spheres)), o, d,
+                           idxs, events, skip_dead=True)
+    err = (col.reshape(colours.shape) - colours.double()).abs().amax(-1)
+    return (err < WELL_CONDITIONED_ERR).float()[..., None]
+
+
+def _k1f_xla(port) -> list:
+    """``backward="xla"`` at depth DEPTH on rgbbox with XLA_CHUNKS ray
+    chunks, unsorted and sorted by depth: a warm-up, 2 timed steps, peak
+    memory; the sorted replay's gradients against the unsorted one's (the
+    same per-ray cotangents, summed in another order); against
+    ``backward="pallas"``'s, the whole image's gap printed and the loss over
+    the well-conditioned pixels (``_well_conditioned``) held to
+    XLA_TOLS."""
+    import torch
+    from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+    from raytracers_tpu_torch.utils.timing import cuda_ms
+    spheres, cam, _, (tile, block, schedule, prefix) = _diff_scene(
+        port, XLA_SCENE, SIZE)
+    for side in XLA_SIDES:
+        grads, out = {}, []
+        for sort in (False, True):
+            f = make_render_pallas_diff(side, side, max_depth=DEPTH,
+                                        tile=tile, backward="xla",
+                                        bwd_chunks=XLA_CHUNKS,
+                                        sort_by_depth=sort)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _grads(f, spheres, cam)                             # warm-up
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            if warm_s > XLA_MAX_STEP_S:
+                break
+            torch.cuda.reset_peak_memory_stats()
+            ms = [cuda_ms(lambda: _grads(f, spheres, cam), warmup=0, runs=1)
+                  for _ in range(2)]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            img, grads[sort] = _grads(f, spheres, cam)
+            out.append(dict(scene=XLA_SCENE, size=side, depth=DEPTH,
+                            backward="xla", bwd_chunks=XLA_CHUNKS,
+                            sort_by_depth=sort, warm_up_s=warm_s,
+                            step_ms=ms, step_ms_mean=sum(ms) / 2,
+                            peak_memory_gib=peak))
+        else:
+            break
+        log(f"[k1f] xla at {side}x{side}: a warm-up step took {warm_s:.1f} "
+            f"s, over {XLA_MAX_STEP_S} s; trying a smaller side")
+    else:
+        raise SmokeError("the xla backward exceeded its step time at every "
+                         f"side of {XLA_SIDES}")
+    pallas = make_render_pallas_diff(side, side, max_depth=DEPTH, tile=tile,
+                                     block=block, schedule=schedule,
+                                     sort_prefix=prefix)
+    img_p, g_p = _grads(pallas, spheres, cam)
+    if not torch.equal(img.view(torch.int32), img_p.view(torch.int32)):
+        raise SmokeError("the xla engine's image differs from the pallas "
+                         "engine's")
+    gap_sorted, gap_pallas = [], []
+    for a, b, p in zip(grads[False], grads[True], g_p):
+        if not torch.isfinite(b).all() or b.abs().max() == 0:
+            raise SmokeError("an xla gradient is not finite or is zero")
+        gap_sorted.append(float((a - b).abs().max() / a.abs().max()))
+        gap_pallas.append(float((a - p).abs().max() / p.abs().max()))
+    if max(gap_sorted) > 1e-4:
+        raise SmokeError(f"the depth-sorted xla gradients differ from the "
+                         f"unsorted ones by {gap_sorted} of their max")
+    weight = _well_conditioned(spheres, cam, side, tile)
+    _, g_xw = _grads(make_render_pallas_diff(
+        side, side, max_depth=DEPTH, tile=tile, backward="xla",
+        bwd_chunks=XLA_CHUNKS, sort_by_depth=True), spheres, cam, weight)
+    _, g_pw = _grads(pallas, spheres, cam, weight)
+    gap_wc = [float((a - p).abs().max() / p.abs().max())
+              for a, p in zip(g_xw, g_pw)]
+    if any(g > tol for g, tol in zip(gap_wc, XLA_TOLS)):
+        raise SmokeError(f"on the well-conditioned pixels the xla gradients "
+                         f"differ from the pallas ones by {gap_wc} of their "
+                         f"max, over {XLA_TOLS}")
+    for r in out:
+        r.update(sorted_vs_unsorted_rel_gap=gap_sorted,
+                 vs_pallas_rel_gap=gap_pallas,
+                 well_conditioned_share=float(weight.mean()),
+                 vs_pallas_rel_gap_well_conditioned=gap_wc)
+        log(f"[k1f] {json.dumps(r)}")
+    return out
+
+
+def _width_gap(port, name: str) -> list:
+    """One fwd+bwd step of the W = 64 and the W = 128 engines at SIZE,
+    depth DEPTH: the float pixels that differ and the largest gap of each
+    gradient relative to the W = 128 one's largest, printed."""
+    import torch
+    from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+    spheres, cam, _, (tile, block, schedule, prefix) = _diff_scene(
+        port, name, SIZE)
+    cfg = dict(max_depth=DEPTH, tile=tile, block=block, schedule=schedule,
+               sort_prefix=prefix)
+    img64, g64 = _grads(make_render_pallas_diff(SIZE, SIZE, cluster_width=64,
+                                                **cfg), spheres, cam)
+    img128, g128 = _grads(make_render_pallas_diff(SIZE, SIZE, **cfg), spheres,
+                          cam)
+    n_diff = int((img64 != img128).any(dim=-1).sum())
+    gaps = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(g64, g128)]
+    if not all(torch.isfinite(g).all() for g in g64):
+        raise SmokeError(f"{name}: a W=64 engine gradient is not finite")
+    log(f"[k1f] {name} fwd+bwd {SIZE}x{SIZE} d{DEPTH}, W=64 against the "
+        f"W=128 engine: {n_diff} pixels differ; gradient gaps {gaps} of "
+        "the W=128 largest")
+    return gaps
+
+
+def phase_k1f(port) -> dict:
+    """Phase 9: K1f against its plain version at CHECK_SIZE; the K1f render
+    cells at SIZE for both scenes; the fwd+bwd engine at W = 64; the xla
+    backward's options.  Returns the checkers, the cells, the fwd+bwd
+    results and the xla results."""
+    from raytracers_tpu_torch.render import megakernel as mk
+    t0 = time.perf_counter()
+    checkers = _k1f_vs_plain(port)
+    cells = []
+    for name in SCENES:
+        default = _cell(port, name)
+        default_img = default.render()
+        for mode in K1F_CELLS:
+            key = mode if mode in ("W=64", "W=32", "near-root") else "options"
+            cells.append(_k1f_cell(port, default, mode, checkers[key, name],
+                                   default_img))
+        coherent = mk.render_pallas_twophase(
+            default.ps, default.cam, SIZE, SIZE, max_depth=DEPTH,
+            tile=default.config[0], block=default.config[1],
+            schedule=default.config[2], sort_prefix=default.config[3],
+            coherent=True)
+        checkers["options", name].compare(
+            f"{SIZE}x{SIZE} coherent image against the default render",
+            coherent.reshape(-1), default_img.reshape(-1))
+    fwdbwd = []
+    for name in SCENES:
+        res = phase_fwdbwd(port, name, cluster_width=64, tag="k1f")
+        res["grad_rel_gap_to_w128"] = _width_gap(port, name)
+        fwdbwd.append(res)
+    xla = _k1f_xla(port)
+    log(f"[k1f] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return dict(checkers=checkers, cells=cells, fwdbwd=fwdbwd, xla=xla)
+
+
 def _kernels_record(checkers, diff_checkers, results, fb_results,
-                    k3_checkers, k3_results) -> list:
+                    k3_checkers, k3_results, k1f) -> list:
     """One entry per kernel and scene: K1 from the render main path, K1d
-    and K2 from the fwd+bwd main path, K3 from the BVH main path;
+    and K2 from the fwd+bwd main path, K3 from the BVH main path, K1f's
+    modes from phase 9's cells and its W = 64 fwd+bwd steps;
     ``max_abs_err`` from the kernel against plain checks (K2's includes
     its slot tables)."""
     from raytracers_tpu_torch.render import _cuda
@@ -1318,6 +1729,41 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             ms=r["k3_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["k3_bound_ms"], bound_by=r["k3_bound_by"],
             library_ms=None))
+    k1f_checkers = k1f["checkers"]
+    for c in k1f["cells"]:
+        mode, scene = c["mode"], c["scene"]
+        key = mode if mode in ("W=64", "W=32", "near-root") else "options"
+        out.append(dict(
+            name=f"K1f {mode} megakernel ({scene} {where})",
+            route="cuda", source=src["megakernel"],
+            replaces=("raytracers_tpu/render/pallas_kernel.py:"
+                      + K1F_CELLS[mode][2]),
+            launches=c["k1_launches"],
+            max_abs_err=k1f_checkers[key, scene].max_abs_err,
+            ms=c["k1_ms"], plain_ms=c["plain_k1_ms"],
+            bound_ms=c["k1_bound_ms"], bound_by=c["k1_bound_by"],
+            library_ms=None))
+    for r in k1f["fwdbwd"]:
+        scene = r["scene"]
+        k1, k2 = (k1f_checkers["K1d W=64", scene],
+                  k1f_checkers["K2 W=64", scene])
+        out.append(dict(
+            name=f"K1f W=64 K1d megakernel record ({scene} fwd+bwd {where})",
+            route="cuda", source=src["megakernel"],
+            replaces="raytracers_tpu/render/pallas_kernel.py:634",
+            launches=r["k1d_launches"], max_abs_err=k1.max_abs_err,
+            ms=r["k1d_ms"], plain_ms=r["plain_k1d_ms"],
+            bound_ms=r["k1d_bound_ms"], bound_by=r["k1d_bound_by"],
+            library_ms=None))
+        out.append(dict(
+            name=f"K2 replay_bwd at W=64 ({scene} fwd+bwd {where})",
+            route="cuda", source=src["replay_bwd"],
+            replaces="raytracers_tpu/grad/pallas_replay_bwd.py:104",
+            launches=r["k2_launches"], max_abs_err=k2.max_abs_err,
+            table_err_share_of_bound=k2.table_err_share,
+            ms=r["k2_ms"], plain_ms=r["plain_k2_ms"],
+            bound_ms=r["k2_bound_ms"], bound_by=r["k2_bound_by"],
+            library_ms=r["k2_library_ms"]))
     return out
 
 
@@ -1343,12 +1789,13 @@ def main() -> int:
         fb_results = [phase_fwdbwd(port, name) for name in SCENES]
         k3_checkers = phase_bvh_vs_plain(port)
         k3_results = phase_bvh_main(port, k3_checkers)
+        k1f = phase_k1f(port)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": _kernels_record(
         checkers, diff_checkers, results, fb_results, k3_checkers,
-        k3_results)}))
+        k3_results, k1f)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

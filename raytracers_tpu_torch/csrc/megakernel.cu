@@ -3,7 +3,7 @@
 // Replaces the TPU kernel raytracers_tpu/render/pallas_kernel.py:_megakernel
 // (the Pallas megakernel: fused ray generation or state load, then a bounce
 // loop of cluster culling, occlusion gating, packed-key closest hit over
-// 128-sphere clusters, re-intersection and mirror shading).  It computes what
+// clusters of 32, 64 or 128 spheres, re-intersection and mirror shading).  It computes what
 // that kernel computes per ray, not its tile mechanics: one thread owns one
 // ray and runs its whole bounce loop, so a ray stops when it dies instead of
 // riding its tile's deepest ray.  Culling and the occlusion gate therefore act
@@ -12,7 +12,12 @@
 // (render/megakernel.py:megakernel_reference) applies the same per-ray gates.
 //
 // What bounds it on this card: FP32 issue on the visit math, about 30 lane
-// operations per (ray, sphere) slot with FMA contraction off.  Its data is a
+// operations per (ray, sphere) slot with FMA contraction off: the quadratic
+// 17 (oc 3, b 5, c 6, disc 3), the square root 1, the far-root search 9
+// (-b - sq, -b + sq, two window compares, disc > 0, an and, two selects,
+// the lane loop's own step) and the key 3 (mask, lane, min).  The near-root
+// search (kFarRoot = false) drops -b + sq, one compare and one select: 27.
+// Its data is a
 // few hundred KB (irreg's sphere table is 316 KB), resident in L2; the bytes
 // it must move (ray state in and out) are far below the operations' time.
 // The simple design does three things about that: the cluster AABBs (at most
@@ -48,7 +53,17 @@
 // death; with pay, the bounce winner's 7 fields.  The forward arithmetic is
 // unchanged: the records are written beside it.
 //
-// Layouts: params (24,) f32; sphT (C,128,8) f32 rows cx cy cz rad cr cg cb r2;
+// K1f, the remaining static modes (pallas_kernel.py:162-163, 634-639,
+// 672-679, 725): the cluster width W (32, 64 or 128 sphere rows) and the
+// near-root-only search are template parameters, so each of the 3 x 2 x 2
+// instantiations has a static visit trip count.  The key keeps its 7 lane
+// bits (lanes < W fit) and the record slot stays cluster*128 + lane, so K1d's
+// records and K2 are width-agnostic.  The forced occlusion gate is the `occl`
+// launch argument, which the wrapper sets.  JAX's lane groups gate the rays
+// of a tile in groups; this kernel gates each ray alone, the limit of that
+// partition, so they change nothing here.
+//
+// Layouts: params (24,) f32; sphT (C,W,8) f32 rows cx cy cz rad cr cg cb r2;
 // aabbT (CB,CR,8) rows (mnx mny mnz mxx mxy mxz pad pad), the first C used;
 // superT (1,SBR,8) the block unions in the same rows, the first CB used; state
 // (13,n) f32 rows ox oy oz dx dy dz lr lg lb rr rg rb active; packed (n,)
@@ -101,22 +116,26 @@ __device__ __forceinline__ bool slab(float mnx, float mny, float mnz,
   return !(nan_min(hi, kBig) <= nan_max(lo, 0.0f));
 }
 
-// The packed-key closest hit over the first `rows` spheres of cluster c;
-// the winner moves only on a strictly smaller key.
+// The packed-key closest hit over the first `rows` spheres of cluster c of
+// a table of kW-row clusters; the winner moves only on a strictly smaller
+// key.  kFarRoot: the far root is tried where the near one fails the window.
+template <int kW, bool kFarRoot>
 __device__ __forceinline__ void visit(const float* __restrict__ sphT, int c,
                                       int rows, float ox, float oy, float oz,
                                       float dx, float dy, float dz, float a,
                                       float epsa, int& krun, int& wcl,
                                       int& n_slots) {
-  const float* s = sphT + (size_t)c * kLane * 8;
+  const float* s = sphT + (size_t)c * kW * 8;
   int kmin = 0x7fffffff;
   for (int l = 0; l < rows; ++l) {
     const float4 q = __ldg(reinterpret_cast<const float4*>(s + 8 * l));
     const float r2 = __ldg(s + 8 * l + 7);
     const rt::Quad qd = rt::quad(ox, oy, oz, dx, dy, dz, a, q.x, q.y, q.z,
                                  r2);
-    // sqrtf is NaN on a miss, which search_m masks
-    const float tv = rt::search_m(qd, sqrtf(qd.disc), epsa);
+    // sqrtf is NaN on a miss, which the search masks
+    const float sq = sqrtf(qd.disc);
+    const float tv = kFarRoot ? rt::search_m(qd, sq, epsa)
+                              : rt::search_m_near(qd, sq, epsa);
     kmin = min(kmin, (__float_as_int(tv) & kKeyMask) | l);
   }
   n_slots += rows;
@@ -127,8 +146,9 @@ __device__ __forceinline__ void visit(const float* __restrict__ sphT, int c,
 }
 
 // kTwoLevel: the scene-scale sweep (K1e).  Otherwise one cull block of at
-// most 128 clusters, or no culling.
-template <bool kTwoLevel>
+// most 128 clusters, or no culling.  kW: sphere rows per cluster; kFarRoot:
+// the far-root fallback of the search (K1f).
+template <bool kTwoLevel, int kW, bool kFarRoot>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
            const float* __restrict__ aabbT, const float* __restrict__ superT,
@@ -209,8 +229,8 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
             continue;
           // occlusion gate: the box starts behind the best hit so far
           if (occl && lo * a >= __int_as_float(krun & kKeyMask)) continue;
-          visit(sphT, c0 + j, kLane, ox, oy, oz, dx, dy, dz, a, epsa, krun,
-                wcl, n_slots);
+          visit<kW, kFarRoot>(sphT, c0 + j, kW, ox, oy, oz, dx, dy, dz, a,
+                              epsa, krun, wcl, n_slots);
         }
       }
       n_cull += CB;
@@ -224,8 +244,8 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
           // occlusion gate: the box starts behind the best hit so far
           if (occl && lo * a >= __int_as_float(krun & kKeyMask)) continue;
         }
-        visit(sphT, c, (c == C - 1) ? tail_rows : kLane, ox, oy, oz, dx, dy,
-              dz, a, epsa, krun, wcl, n_slots);
+        visit<kW, kFarRoot>(sphT, c, (c == C - 1) ? tail_rows : kW, ox, oy,
+                            oz, dx, dy, dz, a, epsa, krun, wcl, n_slots);
       }
       n_cull += cull ? C : 0;
     }
@@ -241,15 +261,16 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
       if (rec_out != nullptr) rec_out[(size_t)depth * n + g] = -1;
       continue;
     }
-    const int lane = krun & (kLane - 1);
-    const float* w = sphT + ((size_t)wcl * kLane + lane) * 8;
+    const int lane = krun & (kLane - 1);                 // < kW on a hit
+    const float* w = sphT + ((size_t)wcl * kW + lane) * 8;
     const float4 s0 = __ldg(reinterpret_cast<const float4*>(w));
     const float4 s1 = __ldg(reinterpret_cast<const float4*>(w + 4));
     const rt::Bounce h = rt::bounce(ox, oy, oz, dx, dy, dz, a, s0.x, s0.y,
                                     s0.z, s0.w, __int_as_float(krun & kKeyMask));
     if (h.scatter) {                                     // mirror bounce
       if (rec_out != nullptr) {
-        // K1d: the winner's slot, and with pay its 7 fields
+        // K1d: the winner's slot (cluster*128 + lane at any width), and
+        // with pay its 7 fields
         rec_out[(size_t)depth * n + g] = wcl * kLane + lane;
         if (pay_out != nullptr) {
           float* pw = pay_out + (size_t)depth * 8 * n + g;
@@ -296,37 +317,76 @@ megakernel(const float* __restrict__ params, const float* __restrict__ sphT,
   }
 }
 
+// The launch's arguments, passed on to the instantiation it selects.
+struct Args {
+  const float *params, *sphT, *aabbT, *superT;
+  int n_clusters, n_blocks, cull_rows, tail_rows, cull, occl;
+  const float* state_in;
+  float* state_out;
+  int *packed_out, *stats_out, *rec_out;
+  float* pay_out;
+  int rec_depth, n, tile, block_tiled;
+};
+
+template <bool kTwoLevel, int kW, bool kFarRoot>
+void launch(const Args& a, size_t smem, cudaStream_t s) {
+  megakernel<kTwoLevel, kW, kFarRoot>
+      <<<(a.n + kThreads - 1) / kThreads, kThreads, smem, s>>>(
+          a.params, a.sphT, a.aabbT, a.superT, a.n_clusters, a.n_blocks,
+          a.cull_rows, a.tail_rows, a.cull, a.occl, a.state_in, a.state_out,
+          a.packed_out, a.stats_out, a.rec_out, a.pay_out, a.rec_depth, a.n,
+          a.tile, a.block_tiled);
+}
+
+template <int kW>
+int launch_width(const Args& a, int two_level, int far_root,
+                 cudaStream_t s) {
+  if (a.tail_rows < 1 || a.tail_rows > kW) return (int)cudaErrorInvalidValue;
+  if (two_level) {
+    // the scene-scale sweep visits whole clusters: no tail peel
+    if (!a.cull || a.n_blocks < 2 || a.n_blocks > kMaxBlocks ||
+        a.tail_rows != kW)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = 6 * a.n_blocks * sizeof(float);
+    far_root ? launch<true, kW, true>(a, smem, s)
+             : launch<true, kW, false>(a, smem, s);
+  } else {
+    if (a.cull && a.n_clusters > kMaxClusters)
+      return (int)cudaErrorInvalidValue;
+    far_root ? launch<false, kW, true>(a, 0, s)
+             : launch<false, kW, false>(a, 0, s);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rt_megakernel_launch(
     const float* params, const float* sphT, const float* aabbT,
     const float* superT, int n_clusters, int n_blocks, int cull_rows,
-    int tail_rows, int cull, int occl, int two_level, const float* state_in,
-    float* state_out, int* packed_out, int* stats_out, int* rec_out,
-    float* pay_out, int rec_depth, int n, int tile, int block_tiled,
-    void* stream) {
+    int tail_rows, int cull, int occl, int two_level, int cluster_width,
+    int far_root, const float* state_in, float* state_out, int* packed_out,
+    int* stats_out, int* rec_out, float* pay_out, int rec_depth, int n,
+    int tile, int block_tiled, void* stream) {
   if (n_clusters < 1 || n <= 0 || (rec_out != nullptr && rec_depth < 0) ||
       n_blocks < 1 || cull_rows < 1 ||
       (long long)n_blocks * cull_rows < n_clusters)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const Args a{params,   sphT,      aabbT,      superT,    n_clusters,
+               n_blocks, cull_rows, tail_rows,  cull,      occl,
+               state_in, state_out, packed_out, stats_out, rec_out,
+               pay_out,  rec_depth, n,          tile,      block_tiled};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (two_level) {
-    // the scene-scale sweep visits whole clusters: no tail peel
-    if (!cull || n_blocks < 2 || n_blocks > kMaxBlocks || tail_rows != kLane)
+  switch (cluster_width) {
+    case 32:
+      return launch_width<32>(a, two_level, far_root, s);
+    case 64:
+      return launch_width<64>(a, two_level, far_root, s);
+    case kLane:
+      return launch_width<kLane>(a, two_level, far_root, s);
+    default:
       return (int)cudaErrorInvalidValue;
-    megakernel<true><<<blocks, kThreads, 6 * n_blocks * sizeof(float), s>>>(
-        params, sphT, aabbT, superT, n_clusters, n_blocks, cull_rows,
-        tail_rows, cull, occl, state_in, state_out, packed_out, stats_out,
-        rec_out, pay_out, rec_depth, n, tile, block_tiled);
-  } else {
-    if (cull && n_clusters > kMaxClusters) return (int)cudaErrorInvalidValue;
-    megakernel<false><<<blocks, kThreads, 0, s>>>(
-        params, sphT, aabbT, superT, n_clusters, n_blocks, cull_rows,
-        tail_rows, cull, occl, state_in, state_out, packed_out, stats_out,
-        rec_out, pay_out, rec_depth, n, tile, block_tiled);
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* rt_error_string(int code) {

@@ -84,6 +84,16 @@ __device__ __forceinline__ float search_m(const Quad& q, float sq,
   return (q.disc > 0.0f && m > epsa) ? m : kBig;
 }
 
+// The near-root-only search value (far_root=False, pallas_kernel.py:672-
+// 679): m0 = a*t of the near root if it lies beyond epsa, else kBig.  On a
+// miss sq is NaN or the near root fails the window; both comparisons are
+// false on a NaN, so a miss falls to kBig through them alone.
+__device__ __forceinline__ float search_m_near(const Quad& q, float sq,
+                                               float epsa) {
+  const float m0 = -q.b - sq;
+  return (q.disc > 0.0f && m0 > epsa) ? m0 : kBig;
+}
+
 // m with its 7 lane bits cleared, as the packed key holds it.
 __device__ __forceinline__ float key_floor(float m) {
   return __int_as_float(__float_as_int(m) & kKeyMask);

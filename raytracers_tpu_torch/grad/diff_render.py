@@ -37,9 +37,6 @@ EV_ABSORB = 1    # hit, scatter rejected: the path ends black
 EV_MISS = 2      # no hit: the path ends on the sky gradient
 EV_INACTIVE = 3  # the path ended at an earlier step
 
-_NOT_PORTED = ("{} is a measured loss on the TPU and is not ported "
-               "(ROADMAP queue 1, item 14)")
-
 
 @torch.no_grad()
 def trace_paths(closest_hit: Callable, spheres: Spheres, origins, dirs,
@@ -111,25 +108,43 @@ def replay_paths(spheres: Spheres, origins, dirs, idxs, events,
                  skip_dead: bool = False, skip_group: int = 8):
     """Phase 2: the differentiable shading replay -> colours (R, 3).
 
-    ``remat=True`` recomputes each step in the backward pass instead of
-    keeping its intermediates (torch's activation checkpointing), which
-    bounds the replay's memory at large ray counts.  ``skip_dead`` (with
-    ``skip_group``) is not ported: it raises ``NotImplementedError``."""
-    if skip_dead:
-        raise NotImplementedError(_NOT_PORTED.format("skip_dead"))
+    ``remat=True`` recomputes each step (with ``skip_dead``, each group of
+    steps) in the backward pass instead of keeping its intermediates
+    (torch's activation checkpointing), which bounds the replay's memory at
+    large ray counts.
+
+    ``skip_dead=True`` replays groups of ``skip_group`` consecutive steps
+    and skips a group in which no ray of the batch is alive (every event
+    EV_INACTIVE): a dead step is the identity on the carry, so the colours
+    and gradients are those of the dense replay (diff_render.py:202-233).
+    The JAX package pads the last group with EV_INACTIVE steps; here it is
+    shorter, which is the same function.  Eager torch decides on the host:
+    the groups' liveness is read back in one transfer, which waits for the
+    device when the events live there."""
     light = torch.ones_like(origins)
     result = torch.zeros_like(origins)
     o, d = origins, dirs
 
-    def step(o, d, light, result, idx, event):
-        return _replay_step(spheres, gather, o, d, light, result, idx, event)
+    def steps(o, d, light, result, idx, event):
+        for i, e in zip(idx, event):
+            o, d, light, result = _replay_step(spheres, gather, o, d, light,
+                                               result, i, e)
+        return o, d, light, result
 
-    for idx, event in zip(idxs, events):
+    if skip_dead and skip_group < 1:
+        raise ValueError(f"skip_group {skip_group} must be >= 1")
+    G = skip_group if skip_dead else 1
+    groups = [(idxs[k:k + G], events[k:k + G])
+              for k in range(0, idxs.shape[0], G)]
+    if skip_dead and groups:
+        alive = torch.stack([(ev != EV_INACTIVE).any() for _, ev in groups])
+        groups = [g for g, a in zip(groups, alive.tolist()) if a]
+    for idx, event in groups:
         if remat and torch.is_grad_enabled():
-            o, d, light, result = checkpoint(step, o, d, light, result, idx,
+            o, d, light, result = checkpoint(steps, o, d, light, result, idx,
                                              event, use_reentrant=False)
         else:
-            o, d, light, result = step(o, d, light, result, idx, event)
+            o, d, light, result = steps(o, d, light, result, idx, event)
     return result
 
 

@@ -17,12 +17,16 @@ horizontal, vertical):
   product of ``primary_rays``;
 * backward, ``backward="xla"``: the plain torch replay of the oracle
   (``grad/diff_render.replay_paths``) under autograd, from the forward's
-  record mapped to sphere indices.
+  record mapped to sphere indices; optionally in ray chunks
+  (``bwd_chunks``), the rays sorted by path depth first
+  (``sort_by_depth``), and skipping all-dead step groups (``skip_dead``).
 
 The scene is laid out without ``sort_origin`` (pallas_diff.py:343,357), so
-the recorded slots refer to the unsorted layout, as in the JAX package.
-Gradients are exact away from visibility discontinuities: the discrete path
-is held fixed (grad/diff_render.py).
+the recorded slots refer to the unsorted layout, as in the JAX package; the
+K2 engine lays it out at ``cluster_width`` (32, 64 or 128).  Winner slots
+are ``cluster*128 + lane`` at any width, so K2 and the slot table (C*128
+slots) are unchanged by it.  Gradients are exact away from visibility
+discontinuities: the discrete path is held fixed (grad/diff_render.py).
 """
 from __future__ import annotations
 
@@ -32,13 +36,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..geometry import MAX_DEPTH, Camera, Spheres
-from ..render.megakernel import (LANE, _ray_order, _to_image,
-                                 build_pallas_scene, megakernel,
-                                 render_pallas_record,
+from ..render.megakernel import (_ray_order, _to_image, build_pallas_scene,
+                                 megakernel, render_pallas_record,
                                  render_pallas_record_twophase)
 from ..render.tracer import primary_rays
 from .diff_render import (EV_ABSORB, EV_BOUNCE, EV_INACTIVE, EV_MISS,
-                          _NOT_PORTED, replay_paths)
+                          replay_paths)
 from .replay_bwd import N_CARRY, replay_bwd
 
 _POS_MASK = (1 << 30) - 1
@@ -67,14 +70,15 @@ class _KernelEngine:
     """backward="pallas": K1d forward, K2 backward, segment by segment."""
 
     def __init__(self, width, height, max_depth, tile, block, schedule,
-                 sort_prefix, fwd_kernel, bwd_kernel):
+                 sort_prefix, cluster_width, fwd_kernel, bwd_kernel):
         self.width, self.height, self.max_depth = width, height, max_depth
         self.tile, self.block = tile, block
         self.schedule, self.sort_prefix = schedule, sort_prefix
+        self.cluster_width = cluster_width
         self.fwd_kernel, self.bwd_kernel = fwd_kernel, bwd_kernel
 
     def forward(self, spheres: Spheres, cam: Camera):
-        scene = build_pallas_scene(spheres)
+        scene = build_pallas_scene(spheres, cluster_width=self.cluster_width)
         kw = dict(max_depth=self.max_depth, tile=self.tile, block=self.block,
                   kernel=self.fwd_kernel)
         if self.schedule:
@@ -161,12 +165,15 @@ class _KernelEngine:
 
 
 class _ReplayEngine:
-    """backward="xla": K1d forward, the oracle's replay under autograd."""
+    """backward="xla": K1d forward, the oracle's replay under autograd, in
+    ray chunks (pallas_diff.py:133-213)."""
 
     def __init__(self, width, height, max_depth, tile, gather, remat,
-                 fwd_kernel):
+                 bwd_chunks, sort_by_depth, skip_dead, fwd_kernel):
         self.width, self.height, self.max_depth = width, height, max_depth
         self.tile, self.gather, self.remat = tile, gather, remat
+        self.bwd_chunks, self.sort_by_depth = bwd_chunks, sort_by_depth
+        self.skip_dead = skip_dead
         self.fwd_kernel = fwd_kernel
 
     def forward(self, spheres: Spheres, cam: Camera):
@@ -181,18 +188,72 @@ class _ReplayEngine:
         return colours, rec_orig
 
     def backward(self, rec_orig, spheres: Spheres, cam: Camera, g):
+        """The replay's vector-Jacobian product chunk by chunk, summing the
+        sphere gradients; then the rays' cotangents through the camera.
+
+        ``sort_by_depth`` (with ``bwd_chunks`` > 1) first permutes the rays
+        by descending path depth on the unique key ``(D - depth) * R + id``,
+        with one gather of the stacked (R, 9 + D) rows (the record's int32
+        columns ride bitcast to float32), so each chunk is depth-homogeneous
+        and ``skip_dead`` (default: on exactly when sorted) skips its dead
+        step groups; the ray cotangents are put back by the inverse
+        permutation.  The last chunk is padded with inert rays: direction
+        (1, 1, 1) (a zero one gives 0/0 in the replay), EV_INACTIVE events
+        and a zero cotangent."""
+        D = self.max_depth
+        o, d = primary_rays(cam, self.width, self.height)
+        R = o.shape[0]
+        gflat = g.reshape(-1, 3)
+        n_chunks = max(1, self.bwd_chunks)
+        perm = None
+        if self.sort_by_depth and n_chunks > 1:
+            depth = (rec_orig != -2).sum(dim=0)
+            key = (D - depth) * R + torch.arange(R, device=o.device)
+            perm = torch.sort(key).values % R
+            stacked = torch.cat([o, d, gflat,
+                                 rec_orig.T.contiguous().view(torch.float32)],
+                                dim=1)                        # (R, 9 + D)
+            rows = stacked[perm]
+            o, d, gflat = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+            rec_orig = rows[:, 9:].contiguous().view(torch.int32).T
         idxs, events = _rec_to_path(rec_orig)
-        with torch.enable_grad():
-            sph = Spheres(*(t.detach().requires_grad_(True) for t in spheres))
-            cam_l = Camera(*(t.detach().requires_grad_(True) for t in cam))
-            o, d = primary_rays(cam_l, self.width, self.height)
-            col = replay_paths(sph, o, d, idxs, events, gather=self.gather,
-                               remat=self.remat)
-            grads = torch.autograd.grad(col, [*sph, *cam_l],
-                                        g.reshape(-1, 3), allow_unused=True)
-        grads = [torch.zeros_like(x) if gx is None else gx
-                 for gx, x in zip(grads, [*sph, *cam_l])]
-        return grads[:3], grads[3:]
+        skip = (perm is not None) if self.skip_dead is None else self.skip_dead
+
+        ck = -(-R // n_chunks)
+        pad = ck * n_chunks - R
+        if pad:
+            o = torch.cat([o, o.new_zeros(pad, 3)])
+            d = torch.cat([d, d.new_ones(pad, 3)])
+            gflat = torch.cat([gflat, gflat.new_zeros(pad, 3)])
+            idxs = torch.cat([idxs, idxs.new_zeros(D, pad)], dim=1)
+            events = torch.cat([events, events.new_full((D, pad),
+                                                         EV_INACTIVE)], dim=1)
+        gs, go, gd = None, [], []
+        for c in range(n_chunks):
+            cs = slice(c * ck, (c + 1) * ck)
+            with torch.enable_grad():
+                sph = Spheres(*(t.detach().requires_grad_(True)
+                                for t in spheres))
+                oc = o[cs].detach().requires_grad_(True)
+                dc = d[cs].detach().requires_grad_(True)
+                col = replay_paths(sph, oc, dc, idxs[:, cs], events[:, cs],
+                                   gather=self.gather, remat=self.remat,
+                                   skip_dead=skip)
+                grads = torch.autograd.grad(col, [*sph, oc, dc], gflat[cs],
+                                            allow_unused=True)
+            grads = [torch.zeros_like(x) if gx is None else gx
+                     for gx, x in zip(grads, [*sph, oc, dc])]
+            gs = (grads[:3] if gs is None
+                  else [a + b for a, b in zip(gs, grads[:3])])
+            go.append(grads[3])
+            gd.append(grads[4])
+        go, gd = torch.cat(go)[:R], torch.cat(gd)[:R]
+        if perm is not None:
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(R, device=perm.device)
+            god = torch.cat([go, gd], dim=1)[inv]
+            go, gd = god[:, 0:3], god[:, 3:6]
+        return gs, _camera_vjp(cam, self.width, self.height, go, gd)
 
 
 class _RenderDiff(torch.autograd.Function):
@@ -237,34 +298,31 @@ def make_render_pallas_diff(width: int, height: int,
     takes image-block ray order for both passes; ``schedule`` (or
     ``phase1_depth=p``, meaning ``(p,)``) and ``sort_prefix`` split both
     passes into segments with survivor compaction between them, as
-    ``render_pallas_record_twophase`` does.  ``backward="xla"`` replays
-    with the oracle (``gather`` and ``remat`` as in ``replay_paths``) and
-    ignores ``block`` and the schedule, as the JAX package does.
+    ``render_pallas_record_twophase`` does; ``cluster_width`` (32, 64 or
+    the default 128) is the layout's cluster width, built every step.
+
+    ``backward="xla"`` replays with the oracle (``gather`` and ``remat`` as
+    in ``replay_paths``) at cluster width 128 and ignores ``block``, the
+    schedule and ``cluster_width``, as the JAX package does.
+    ``bwd_chunks`` splits its replay into that many ray chunks, which
+    bounds its memory; ``sort_by_depth`` (with ``bwd_chunks`` > 1) sorts
+    the rays by path depth before chunking, and ``skip_dead`` (default: on
+    exactly when sorted) skips the step groups where a chunk has no live
+    ray (``_ReplayEngine.backward``).  The JAX package measured both as
+    losses on the TPU; here they are the same function, chunked.
 
     ``fwd_kernel`` and ``bwd_kernel`` are what run K1d and K2: the
     wrappers, or anything with their signatures (their plain versions, or a
-    checking or timing wrapper).
-
-    Not ported, raising ``NotImplementedError`` (measured losses on the TPU,
-    ROADMAP queue 1, item 14): ``bwd_chunks > 1``, ``sort_by_depth``,
-    ``skip_dead`` and a ``cluster_width`` other than 128."""
-    if bwd_chunks > 1:
-        raise NotImplementedError(_NOT_PORTED.format("bwd_chunks > 1"))
-    if sort_by_depth:
-        raise NotImplementedError(_NOT_PORTED.format("sort_by_depth"))
-    if skip_dead:
-        raise NotImplementedError(_NOT_PORTED.format("skip_dead"))
-    if cluster_width not in (None, LANE):
-        raise NotImplementedError(
-            f"cluster_width {cluster_width}: only 128-sphere clusters are "
-            "ported (ROADMAP queue 1, item 14)")
+    checking or timing wrapper)."""
     if backward == "pallas":
         if schedule is None and phase1_depth:
             schedule = (phase1_depth,)
         engine = _KernelEngine(width, height, max_depth, tile, block,
-                               schedule, sort_prefix, fwd_kernel, bwd_kernel)
+                               schedule, sort_prefix, cluster_width,
+                               fwd_kernel, bwd_kernel)
     elif backward == "xla":
         engine = _ReplayEngine(width, height, max_depth, tile, gather, remat,
+                               bwd_chunks, sort_by_depth, skip_dead,
                                fwd_kernel)
     else:
         raise ValueError(f"unknown backward {backward!r}")

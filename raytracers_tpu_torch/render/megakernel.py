@@ -17,6 +17,17 @@ Counterpart of ``raytracers_tpu.render.pallas_kernel`` (the TPU kernel
   and the winner's fields, which the backward replay (K2,
   ``grad/replay_bwd.py``) differentiates.
 
+Every static mode of the JAX kernel is ported (K1f is the last of them):
+clusters of 32, 64 or 128 spheres (``build_pallas_scene(cluster_width=)``;
+winner slots stay ``cluster*128 + lane``), the near-root-only search
+(``far_root=False``), the occlusion gate forced on at C <= 16
+(``render_pallas_twophase(occl_cont=True)``), and ``lane_groups``.  JAX's
+lane groups gate each group of a tile's rays on its own cull flags and
+occlusion window (pallas_kernel.py:485-491); this port gates each ray alone,
+which is the limit of that partition, so ``lane_groups`` is accepted and
+validated (``_check_lane_groups``, which states JAX's fallback rule) and
+changes nothing that the kernel computes.
+
 Arithmetic shared by the kernel and the plain version, and why:
 
 * the closest-hit search runs in m = a*t space with the packed key
@@ -39,17 +50,20 @@ geometry is independent of them.
 from __future__ import annotations
 
 import ctypes
+import operator
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..bvh.lbvh import Clusters, build_clusters
+from ..bvh.morton import morton3d
 from ..geometry import MAX_DEPTH, SCENE_EPSILON, T_MAX, Camera, Spheres
 from ..vec import sqrt
-from .ray_math import bounce, quad, search_m, sky
+from .ray_math import bounce, quad, search_m, search_m_near, sky
 
-LANE = 128            # spheres per cluster
+LANE = 128            # lanes of the packed key and slots a cluster encodes
+WIDTHS = (32, 64, LANE)   # sphere rows per cluster the kernel takes
 DEFAULT_TILE = 512    # rays per tile of the ray order
 _BIG = float(T_MAX)
 
@@ -65,13 +79,14 @@ MAX_BLOCKS = 2048   # block unions the kernel holds in shared memory (48 KB)
 class PallasScene(NamedTuple):
     """Scene laid out for the megakernel (pallas_kernel.py:80-114).
 
-    C clusters of 128 Morton-sorted spheres; CB = ceil(C / CR) blocks of
-    CR cull rows.  ``sphT`` (C,128,8) and ``sph8`` (C,8,128) hold the fields
-    cx cy cz rad cr cg cb r^2; ``aabbT`` (CB,CR,8) the cluster AABBs
-    (padding clusters +inf/-inf); ``superT`` (1,SBR,8) the per-block
-    unions; ``order`` (C,128) int32 the original sphere index of each slot
-    (-1 padding); ``tailT``/``tail8`` the last cluster's first P rows, the
-    peel of a partial final cluster (P == 128: no peel).
+    C clusters of W Morton-sorted spheres (W = 32, 64 or 128); CB =
+    ceil(C / CR) blocks of CR cull rows.  ``sphT`` (C,W,8) and ``sph8``
+    (C,8,W) hold the fields cx cy cz rad cr cg cb r^2; ``aabbT`` (CB,CR,8)
+    the cluster AABBs (padding clusters +inf/-inf); ``superT`` (1,SBR,8) the
+    per-block unions; ``order`` (C,128) int32 the original sphere index of
+    each slot ``cluster*128 + lane`` (-1 padding, and the lanes >= W);
+    ``tailT``/``tail8`` the last cluster's first P rows, the peel of a
+    partial final cluster (P == W: no partial cluster).
     """
     sphT: torch.Tensor
     sph8: torch.Tensor
@@ -85,11 +100,23 @@ class PallasScene(NamedTuple):
     def n_clusters(self) -> int:
         return self.sphT.shape[0]
 
+    @property
+    def cluster_width(self) -> int:
+        return self.sphT.shape[1]
+
 
 def build_pallas_scene(sph: Spheres, sort_origin=None,
-                       cull_rows: int | None = None) -> PallasScene:
+                       cull_rows: int | None = None,
+                       cluster_width: int | None = None) -> PallasScene:
     """Morton-sort and cluster the scene into the kernel layout
-    (pallas_kernel.py:121-300, at cluster width 128).
+    (pallas_kernel.py:121-300).
+
+    ``cluster_width`` W (default 128; 32 or 64) sets the sphere rows per
+    cluster.  The winner slots stay ``cluster*128 + lane`` at any width
+    (``order`` pads each cluster's row to 128 with -1), so the record and
+    replay path is width-agnostic.  A scene of at most 128 spheres is one
+    padded 128-row cluster, so W < 128 raises there, as the JAX package's
+    reshape of that cluster does (pallas_kernel.py:165-192, 212).
 
     ``sort_origin`` (normally the camera origin) orders the clusters
     front-to-back by the distance of their AABB centres, within each block
@@ -100,10 +127,17 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
     CR = ``cull_rows`` cull rows (default 64, rounded down to a multiple
     of 8 within [8, 128]), as the JAX package does; any CR gives the same
     image, since culling is conservative at any grouping."""
-    W = LANE
+    W = cluster_width or LANE
+    if W not in WIDTHS:
+        raise ValueError(f"cluster_width {W}: the kernel takes {WIDTHS}")
     n = sph.center.shape[0]
     dev = sph.center.device
     if n <= LANE:
+        if W < LANE:
+            raise ValueError(
+                f"cluster_width {W} needs more than {LANE} spheres: a scene "
+                f"of {n} is one padded {LANE}-row cluster (the JAX package "
+                "fails to reshape it too)")
         # one cluster: pad with radius-0 spheres at the last real centre
         pad = LANE - n
         r = sph.radius[:, None]
@@ -156,8 +190,8 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
         field(s.radius),
         field(s.color[:, 0]), field(s.color[:, 1]), field(s.color[:, 2]),
         field(s.radius * s.radius),
-    ], dim=1)                                             # (C, 8, 128)
-    sphT = sph8.transpose(1, 2).contiguous()              # (C, 128, 8)
+    ], dim=1)                                             # (C, 8, W)
+    sphT = sph8.transpose(1, 2).contiguous()              # (C, W, 8)
 
     CB = -(-C // CR)
     pad = CB * CR - C
@@ -193,6 +227,10 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
         P = 8
         while P < n_tail:
             P *= 2
+    if W < LANE:
+        # slots stay cluster*128 + lane: pad each cluster's row to 128
+        order2d = torch.cat([order2d, order2d.new_full((C, LANE - W), -1)],
+                            dim=1)
     return PallasScene(sphT=sphT, sph8=sph8.contiguous(), aabbT=aabbT,
                        superT=superT, order=order2d,
                        tailT=sphT[C - 1, :P, :].contiguous(),
@@ -200,8 +238,15 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
 
 
 def _check_supported(scene: PallasScene) -> None:
-    if scene.sphT.shape[1] != LANE:
-        raise NotImplementedError("only 128-sphere clusters are ported")
+    """What the kernel can hold: W-row clusters of a width it is built for,
+    a tail of at most W rows, and at most MAX_BLOCKS block unions."""
+    C, W = scene.n_clusters, scene.cluster_width
+    if W not in WIDTHS or scene.sphT.shape != (C, W, 8):
+        raise ValueError(f"sphT {tuple(scene.sphT.shape)}: the kernel takes "
+                         f"(C, W, 8) with W in {WIDTHS}")
+    if not 1 <= scene.tailT.shape[0] <= W:
+        raise ValueError(f"tailT {tuple(scene.tailT.shape)}: a tail of 1 to "
+                         f"{W} rows")
     if scene.aabbT.shape[0] > MAX_BLOCKS:
         raise ValueError(f"{scene.aabbT.shape[0]} cluster blocks: the kernel "
                          f"keeps at most {MAX_BLOCKS} block unions in shared "
@@ -212,24 +257,47 @@ class _Flags(NamedTuple):
     cull: bool          # per-ray AABB culling of clusters
     occl: bool          # the occlusion gate
     two_level: bool     # block unions first, then the entered blocks' boxes
-    tail_rows: int      # sphere rows of the last cluster (128: no peel)
+    tail_rows: int      # sphere rows of the last cluster (W: no peel)
 
 
-def _kernel_flags(scene: PallasScene, cull: bool | None = None) -> _Flags:
+def _kernel_flags(scene: PallasScene, cull: bool | None = None,
+                  force_occl: bool = False) -> _Flags:
     """The TPU kernel's static choices (pallas_kernel.py:725, 789-791,
     1094-1095, 1402): culling for C > 1 unless ``cull`` says otherwise, the
-    occlusion gate for culled C > 16, the two-level cull for culled layouts
-    of more than one block, and the tail peel when P < 128 only for
-    single-level sweeps of C <= 1024 (the TPU's sphere tables move to HBM
-    beyond that).  The peel is semantics, not only speed: a radius-0
-    padding row can register a hit (pallas_kernel.py:166-172)."""
+    occlusion gate for culled C > 16 or when ``force_occl`` forces it, the
+    two-level cull for culled layouts of more than one block, and the tail
+    peel when P < 128 only for single-level sweeps of C <= 1024 (the TPU's
+    sphere tables move to HBM beyond that); at W < 128 a full last cluster
+    is so "peeled" at its W rows.  The peel is semantics, not only speed: a
+    radius-0 padding row can register a hit (pallas_kernel.py:166-172)."""
     C = scene.n_clusters
     if cull is None:
         cull = C > 1
     two_level = cull and scene.aabbT.shape[0] > 1
     P = scene.tailT.shape[0]
     peel = P < LANE and C <= 1024 and not two_level
-    return _Flags(cull, cull and C > 16, two_level, P if peel else LANE)
+    return _Flags(cull, cull and (C > 16 or force_occl), two_level,
+                  P if peel else scene.cluster_width)
+
+
+def _check_lane_groups(lane_groups) -> None:
+    """``lane_groups`` must be None or an integer >= 1.  A JAX launch runs
+    that many groups only when it is culled, has one cull block, keeps its
+    spheres resident (C <= 1024) and its tile splits into groups of whole
+    128-lane rows, else one (pallas_kernel.py:1403-1416).  The port's kernel
+    gates each ray alone, the limit of any such partition, so the count
+    changes nothing it computes and is not resolved here."""
+    if lane_groups is None:
+        return
+    if isinstance(lane_groups, bool):
+        raise ValueError("lane_groups must be an integer >= 1, not a bool")
+    try:
+        ng = operator.index(lane_groups)
+    except TypeError:
+        raise ValueError(f"lane_groups {lane_groups!r} must be an integer "
+                         ">= 1") from None
+    if ng < 1:
+        raise ValueError(f"lane_groups {ng} must be >= 1")
 
 
 # ---------------------------------------------------------------------------
@@ -283,9 +351,10 @@ def _slab(box, ox, oy, oz, dx, dy, dz):
     return lo, ~(torch.minimum(hi, big) <= torch.maximum(lo, zero))
 
 
-def _closest_hit_reference(scene: PallasScene, flags: _Flags,
+def _closest_hit_reference(scene: PallasScene, flags: _Flags, far_root: bool,
                            ox, oy, oz, dx, dy, dz, a):
-    """Per-ray culled packed-key search over the live rays.
+    """Per-ray culled packed-key search over the live rays, over W-row
+    clusters, with the far-root fallback unless ``far_root`` is False.
 
     Single-level (one cull block): every cluster's AABB, then the visit.
     Two-level (K1e, pallas_kernel.py:526-566, 796-838): each ray tests the
@@ -299,15 +368,16 @@ def _closest_hit_reference(scene: PallasScene, flags: _Flags,
     single-level sweep; CB super rows plus the clusters of each entered
     block for a two-level one)."""
     sphT = scene.sphT
-    C = scene.n_clusters
+    C, W = scene.n_clusters, scene.cluster_width
     CB, CR = scene.aabbT.shape[:2]
+    search = search_m if far_root else search_m_near
     m = ox.shape[0]
     dev = ox.device
     krun = torch.full((m,), _KRUN_INIT, dtype=torch.int32, device=dev)
     wcl = torch.zeros(m, dtype=torch.int64, device=dev)
     slots = torch.zeros(m, dtype=torch.int32, device=dev)
     crows = torch.zeros(m, dtype=torch.int32, device=dev)
-    lanes = torch.arange(LANE, dtype=torch.int32, device=dev)
+    lanes = torch.arange(W, dtype=torch.int32, device=dev)
     ray = (ox, oy, oz, dx, dy, dz)
     if flags.two_level:
         _, sup_ok = _slab(scene.superT[0, :CB], *ray)        # (m, CB)
@@ -333,7 +403,7 @@ def _closest_hit_reference(scene: PallasScene, flags: _Flags,
             visits = range(nb)
         for j in visits:
             c = c0 + j
-            rows = flags.tail_rows if c == C - 1 else LANE
+            rows = flags.tail_rows if c == C - 1 else W
             if flags.cull:
                 keep = ok[:, j]
                 if flags.occl:
@@ -349,7 +419,7 @@ def _closest_hit_reference(scene: PallasScene, flags: _Flags,
                 ro = [x[:, None] for x in r] + [ab[:, None]]
             s = sphT[c, :rows]                               # (rows, 8)
             q = quad(*ro, s[:, 0], s[:, 1], s[:, 2], s[:, 7])
-            tv = search_m(q, sqrt(q.disc), SCENE_EPSILON * ro[6])
+            tv = search(q, sqrt(q.disc), SCENE_EPSILON * ro[6])
             key = (tv.view(torch.int32) & _KEY_MASK) | lanes[:rows]
             kmin = key.amin(dim=1)
             cur = krun[g]
@@ -365,14 +435,18 @@ def megakernel_reference(scene: PallasScene, params: torch.Tensor,
                          state_in: torch.Tensor | None = None,
                          emit_state: bool = False, with_stats: bool = False,
                          record_depth: int | None = None,
-                         record_pay: bool = False, cull: bool | None = None):
+                         record_pay: bool = False, cull: bool | None = None,
+                         far_root: bool = True, force_occl: bool = False,
+                         lane_groups: int | None = None):
     """Plain torch version of K1, on any device, with the kernel's per-ray
     arithmetic: square roots correctly rounded through float64, no fused
     multiply-adds.  Bounces run over the live rays only and each cluster
     over the rays its gates pass.  Same arguments and results as
     ``megakernel``."""
     _check_supported(scene)
-    flags = _kernel_flags(scene, cull)
+    _check_lane_groups(lane_groups)
+    flags = _kernel_flags(scene, cull, force_occl)
+    W = scene.cluster_width
     dev = params.device
     S = (_gen_rays(params, n_rays, tile, block_tiled) if state_in is None
          else state_in.clone())
@@ -394,14 +468,15 @@ def megakernel_reference(scene: PallasScene, params: torch.Tensor,
         ox, oy, oz, dx, dy, dz, lr, lg, lb, rr, rg, rb = S[:12, live]
         a = dx * dx + dy * dy + dz * dz
         krun, wcl, slots, crows = _closest_hit_reference(
-            scene, flags, ox, oy, oz, dx, dy, dz, a)
+            scene, flags, far_root, ox, oy, oz, dx, dy, dz, a)
         stats[0, live] += slots
         stats[1, live] += 1
         stats[2, live] += crows
 
         hit = krun < _HIT_TH
         lane = krun & (LANE - 1)
-        w = scene.sphT[wcl, lane.long()]                       # (m, 8)
+        # a hit's lane is < W; a miss's fields are read but never used
+        w = scene.sphT[wcl, (lane & (W - 1)).long()]          # (m, 8)
         scx, scy, scz, srad, sr, sg, sb = w[:, :7].unbind(1)
         h = bounce(ox, oy, oz, dx, dy, dz, a, scx, scy, scz, srad,
                    (krun & _KEY_MASK).view(torch.float32))
@@ -447,13 +522,15 @@ def pack_pix(rr, rg, rb):
 
 
 def _check_launch(scene: PallasScene, params, n_rays, tile, block_tiled,
-                  state_in, record_depth=None, record_pay=False):
+                  state_in, record_depth=None, record_pay=False,
+                  lane_groups=None):
     dev = params.device
     if record_pay and record_depth is None:
         raise ValueError("record_pay needs record_depth")
     if record_depth is not None and record_depth < 1:
         raise ValueError(f"record_depth {record_depth} must be >= 1")
     _check_supported(scene)
+    _check_lane_groups(lane_groups)
     if (params.dtype != torch.float32 or params.shape != (24,)
             or not params.is_contiguous()):
         raise ValueError("params must be a contiguous (24,) float32 tensor")
@@ -483,9 +560,10 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
                state_in: torch.Tensor | None = None,
                emit_state: bool = False, with_stats: bool = False,
                record_depth: int | None = None, record_pay: bool = False,
-               cull: bool | None = None):
+               cull: bool | None = None, far_root: bool = True,
+               force_occl: bool = False, lane_groups: int | None = None):
     """K1: trace ``n_rays`` rays until they die or reach the depth cap
-    ``params[13]``.
+    ``params[13]``, over the layout's clusters of 32, 64 or 128 spheres.
 
     Rays are generated from the camera in ``params`` (mode K1a; scanline or
     ``block_tiled``) or continue from ``state_in`` (13, n_rays) (K1b).  The
@@ -499,7 +577,10 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
 
     ``cull`` (default: C > 1) turns AABB culling on or off; the image is
     the same either way.  Layouts of more than one cull block (C > 128)
-    take the two-level cull (K1e) when culled.
+    take the two-level cull (K1e) when culled.  ``far_root=False`` searches
+    the near root only (a ray inside a sphere then passes through it);
+    ``force_occl`` turns the occlusion gate on at C <= 16 too; ``lane_groups``
+    is checked (``_check_lane_groups``) and changes nothing here (K1f).
 
     ``record_depth=D`` (K1d) makes D the depth cap instead of ``params[13]``
     and adds the path record: returns (out, stats, rec, pay) with ``rec``
@@ -516,18 +597,20 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
     kernel on the current stream, without synchronising, and counts the
     launch in ``megakernel.launches``."""
     _check_launch(scene, params, n_rays, tile, block_tiled, state_in,
-                  record_depth, record_pay)
+                  record_depth, record_pay, lane_groups)
     if params.device.type == "cpu":
         return megakernel_reference(
             scene, params, n_rays, tile, block_tiled=block_tiled,
             state_in=state_in, emit_state=emit_state, with_stats=with_stats,
-            record_depth=record_depth, record_pay=record_pay, cull=cull)
+            record_depth=record_depth, record_pay=record_pay, cull=cull,
+            far_root=far_root, force_occl=force_occl,
+            lane_groups=lane_groups)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
     from . import _cuda
     fn = _cuda.load("megakernel")
     dev = params.device
-    flags = _kernel_flags(scene, cull)
+    flags = _kernel_flags(scene, cull, force_occl)
     CB, CR = scene.aabbT.shape[:2]
     state_out = (torch.empty(N_STATE, n_rays, dtype=torch.float32, device=dev)
                  if emit_state else None)
@@ -545,6 +628,7 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
     rc = fn(_ptr(params), _ptr(scene.sphT), _ptr(scene.aabbT),
             _ptr(scene.superT), scene.n_clusters, CB, CR, flags.tail_rows,
             int(flags.cull), int(flags.occl), int(flags.two_level),
+            scene.cluster_width, int(bool(far_root)),
             _ptr(state_in), _ptr(state_out), _ptr(packed), _ptr(stats),
             _ptr(rec), _ptr(pay), record_depth or 0,
             n_rays, tile, int(block_tiled),
@@ -633,22 +717,25 @@ def _stats_dict(stats: torch.Tensor) -> dict:
 
 def render_pallas(scene: PallasScene, cam: Camera, width: int, height: int,
                   max_depth: int = MAX_DEPTH, tile: int = DEFAULT_TILE,
-                  block: tuple | None = None, cull: bool | None = None,
-                  row0=0.0, total_height: int | None = None,
-                  with_stats: bool = False, kernel: Callable = megakernel):
+                  far_root: bool = True, block: tuple | None = None,
+                  cull: bool | None = None, row0=0.0,
+                  total_height: int | None = None,
+                  lane_groups: int | None = None, with_stats: bool = False,
+                  kernel: Callable = megakernel):
     """Render -> packed int32 (h, w) with one K1 launch
     (pallas_kernel.py:1071-1147).  ``block=(bh, bw)`` with bh*bw == tile
     maps tiles to image rectangles instead of scanline runs; ``cull``
     (default: C > 1) turns AABB culling on or off, with the same image;
     ``row0`` / ``total_height`` render rows [row0, row0+height) of a
-    taller image.  ``kernel`` is what runs K1: the wrapper, or anything
-    with its signature (its plain version, or a checking or timing
-    wrapper)."""
+    taller image; ``far_root`` and ``lane_groups`` as in ``megakernel``.
+    ``kernel`` is what runs K1: the wrapper, or anything with its signature
+    (its plain version, or a checking or timing wrapper)."""
     ro = _ray_order(cam, width, height, tile, block, row0, total_height,
                     max_depth)
     out, stats = kernel(scene, ro.params, ro.n_rays, tile,
                         block_tiled=block is not None,
-                        with_stats=with_stats, cull=cull)
+                        with_stats=with_stats, cull=cull, far_root=far_root,
+                        lane_groups=lane_groups)
     img = _to_image(ro, out, width, height)
     return (img, _stats_dict(stats)) if with_stats else img
 
@@ -663,59 +750,114 @@ def _sort_prefixes(sort_prefix, n_phases, n_rays, tile):
     return prefs + [None] * (n_phases - len(prefs))
 
 
-def _bsort_perm(key: torch.Tensor, prefix: int | None) -> torch.Tensor:
+def _bsort_perm(key: torch.Tensor, prefix: int | None,
+                segments: int = 1) -> torch.Tensor:
     """Permutation of the boundary sort (pallas_kernel.py:1644-1662): sort
-    the unique keys of ``key[:prefix]``, leave the suffix in place."""
+    the unique keys of ``key[:prefix]`` and leave the suffix in place; with
+    no prefix, sort the whole array or, with ``segments`` S > 1, each of its
+    S rows of L = n / S rays on its own."""
     n = key.shape[0]
-    if prefix is None or not 0 < prefix < n:
+    if prefix is not None and 0 < prefix < n:
+        head = torch.sort(key[:prefix]).indices
+        return torch.cat([head, torch.arange(prefix, n, device=key.device)])
+    if segments == 1:
         return torch.sort(key).indices
-    head = torch.sort(key[:prefix]).indices
-    return torch.cat([head, torch.arange(prefix, n, device=key.device)])
+    L = n // segments
+    rows = torch.sort(key.view(segments, L), dim=1).indices
+    return (rows + torch.arange(0, n, L, device=key.device)[:, None]).view(n)
+
+
+def _coherent_key(st: torch.Tensor, dead: torch.Tensor, scene: PallasScene):
+    """The ``coherent`` boundary key (pallas_kernel.py:1664-1672,
+    1720-1727): ``(dead << 30) | (octant << 27) | (morton3d(pos) >> 3)``,
+    the position normalised to the scene's bounds (padding clusters are
+    +inf/-inf boxes, neutral under min/max).  Not unique: the caller sorts
+    it stably and carries the ray id as a payload."""
+    box = scene.aabbT.reshape(-1, 8)
+    lo, hi = box[:, 0:3].amin(dim=0), box[:, 3:6].amax(dim=0)
+    span = hi - lo
+    inv = torch.where(span > 0, 1.0 / torch.where(span > 0, span, 1.0), 0.0)
+    octant = ((st[3] < 0).to(torch.int32)
+              | ((st[4] < 0).to(torch.int32) << 1)
+              | ((st[5] < 0).to(torch.int32) << 2))
+    m = morton3d((st[0:3].T - lo) * inv)                    # < 2^30, int64
+    return (dead << 30) | (octant << 27) | (m >> 3).to(torch.int32)
 
 
 def render_pallas_twophase(scene: PallasScene, cam: Camera, width: int,
                            height: int, max_depth: int = MAX_DEPTH,
-                           tile: int = DEFAULT_TILE,
+                           phase1_depth: int = 6, tile: int = DEFAULT_TILE,
+                           far_root: bool = True, cull: bool | None = None,
                            block: tuple | None = None, row0=0.0,
                            total_height: int | None = None,
-                           schedule: tuple = (6,),
+                           tile2: int | None = None,
+                           lane_groups: int | None = None,
+                           schedule: tuple | None = None,
+                           coherent: bool = False, occl_cont: bool = False,
+                           seg_tiles: int | None = None,
                            sort_prefix: tuple | None = None,
                            with_stats: bool = False,
                            kernel: Callable = megakernel):
     """Multi-phase render with survivor compaction between phases
     (pallas_kernel.py:1496-1792).
 
-    Phase k traces every ray to the depth cap ``schedule[k]`` and emits
-    its state; the last phase runs to
+    Phase k traces every ray to the depth cap ``schedule[k]`` (default
+    ``(phase1_depth,)``) and emits its state; the last phase runs to
     ``max_depth``.  At each boundary one sort on the unique key
     ``(dead << 30) | ray_id`` packs the survivors into a prefix (boundary k
     sorts only the first ``sort_prefix[k]`` fraction of the rays, rounded
-    to tiles; exact for any survival rate).  Each ray's pixel comes from the
-    phase it dies in, accumulated in ``acc_pix``, merged with the last
+    to ``tile2``; exact for any survival rate).  Each ray's pixel comes from
+    the phase it dies in, accumulated in ``acc_pix``, merged with the last
     phase's pixels and put back in ray order by sorting on the ray id.  The
     image is bit-identical to ``render_pallas``.
+
+    ``tile2`` (default ``tile``) is the continuation phases' tile: their
+    ray-order parameter, which must divide the padded ray count.
+    ``seg_tiles`` compacts within S = (rays / tile2) / seg_tiles segments
+    (when that divides evenly and S > 1): a boundary without a prefix sorts
+    each segment on its own, and so does the final unpermute while no
+    prefix sort has moved rays across segments.  (JAX's unpermute stays
+    segmented after a prefix sort too, which scrambles its image; this
+    port's then sorts the whole array: ROADMAP queue 3.)  ``coherent``
+    packs survivors by direction octant and position Morton code instead
+    of ray id (one global stable sort, the ray id a payload; forces S = 1,
+    no prefixes): the same image.  ``occl_cont`` forces the occlusion gate
+    on in every continuation phase, even at C <= 16, which may move a
+    winner within one 2^-16 key-floor bucket.  ``far_root``, ``cull`` and
+    ``lane_groups`` pass to every launch, as in ``render_pallas``.
 
     ``with_stats`` also returns exact counter sums, in total and per phase.
     ``kernel`` runs K1, as in ``render_pallas``.
     """
+    if schedule is None:
+        schedule = (phase1_depth,)
     if sum(schedule) >= max_depth:
         raise ValueError(f"schedule {schedule} must end before max_depth "
                          f"{max_depth}")
     ro = _ray_order(cam, width, height, tile, block, row0, total_height, 0)
     Rp = ro.n_rays
     dev = ro.params.device
-    prefs = _sort_prefixes(sort_prefix, len(schedule), Rp, tile)
+    t2 = tile if tile2 is None else tile2
+    if t2 <= 0 or Rp % t2:
+        raise ValueError(f"tile2 {t2} must divide the {Rp} padded rays")
+    nt2 = Rp // t2
+    S = (nt2 // seg_tiles if seg_tiles and not coherent
+         and nt2 % seg_tiles == 0 and nt2 > seg_tiles else 1)
+    prefs = _sort_prefixes(sort_prefix, len(schedule), Rp, t2)
     depths = list(schedule) + [max_depth - sum(schedule)]
+    kw = dict(far_root=far_root, cull=cull, lane_groups=lane_groups,
+              with_stats=with_stats)
 
     state_in = acc_pix = idx = None
+    unpermute_segments = S
     phase_stats = []
     for k, depth in enumerate(depths):
         params = ro.params.clone()
         params[13:14].fill_(depth)      # on the device, without a host copy
-        st, stats = kernel(scene, params, Rp, tile,
+        st, stats = kernel(scene, params, Rp, tile if k == 0 else t2,
                            block_tiled=(k == 0 and block is not None),
                            state_in=state_in, emit_state=True,
-                           with_stats=with_stats)
+                           force_occl=occl_cont and k > 0, **kw)
         if with_stats:
             phase_stats.append(stats)
         pix = pack_pix(st[9], st[10], st[11])
@@ -726,18 +868,28 @@ def render_pallas_twophase(scene: PallasScene, cam: Camera, width: int,
         acc_pix = pix if acc_pix is None else acc_pix + pix
         if idx is None:
             idx = torch.arange(Rp, dtype=torch.int32, device=dev)
-        key = ((st[12] <= 0.0).to(torch.int32) << 30) | idx
-        perm = _bsort_perm(key, prefs[k])
-        key_sorted = key[perm]
+        dead = (st[12] <= 0.0).to(torch.int32)
+        if coherent:
+            key = _coherent_key(st, dead, scene)
+            perm = torch.sort(key, stable=True).indices
+            idx = idx[perm]
+            key_sorted = key[perm]
+        else:
+            key = (dead << 30) | idx
+            perm = _bsort_perm(key, prefs[k], S)
+            key_sorted = key[perm]
+            idx = key_sorted & ((1 << 30) - 1)
+            if prefs[k] is not None and 0 < prefs[k] < Rp:
+                unpermute_segments = 1      # rays left their segments
         acc_pix = acc_pix[perm]
-        idx = key_sorted & ((1 << 30) - 1)
         live = ((key_sorted >> 30) == 0).to(torch.float32)
         state_in = torch.cat([st[:9, perm],
                               st.new_zeros(3, Rp), live[None]])
     # merge the last phase's pixels with the earlier ones, then put them
     # back in ray order by sorting on the original ray id
     merged = torch.where(state_in[12] > 0.0, pix, acc_pix)
-    img = _to_image(ro, merged[torch.sort(idx).indices], width, height)
+    unperm = _bsort_perm(idx, None, unpermute_segments)
+    img = _to_image(ro, merged[unperm], width, height)
     if not with_stats:
         return img
     per = [_stats_dict(s) for s in phase_stats]
@@ -754,7 +906,8 @@ def render_pallas_twophase(scene: PallasScene, cam: Camera, width: int,
 
 def render_pallas_record(scene: PallasScene, cam: Camera, width: int,
                          height: int, max_depth: int = MAX_DEPTH,
-                         tile: int = DEFAULT_TILE, with_pay: bool = False,
+                         tile: int = DEFAULT_TILE, far_root: bool = True,
+                         cull: bool | None = None, with_pay: bool = False,
                          block: tuple | None = None,
                          kernel: Callable = megakernel):
     """Float colours and the per-bounce path record from one K1d launch
@@ -765,11 +918,13 @@ def render_pallas_record(scene: PallasScene, cam: Camera, width: int,
     mirror bounce, -1 a miss, -2 inactive, -3 absorbed.  ``with_pay`` adds
     the raw records in ray order, ``rec`` (D, n_rays) and ``pay``
     (D, 8, n_rays), as ``megakernel`` returns them, for the backward
-    replay.  ``block`` and ``kernel`` as in ``render_pallas``."""
+    replay.  ``far_root``, ``cull``, ``block`` and ``kernel`` as in
+    ``render_pallas``."""
     ro = _ray_order(cam, width, height, tile, block, 0.0, None, max_depth)
     st, _, rec, pay = kernel(scene, ro.params, ro.n_rays, tile,
                              block_tiled=block is not None, emit_state=True,
-                             record_depth=max_depth, record_pay=with_pay)
+                             record_depth=max_depth, record_pay=with_pay,
+                             cull=cull, far_root=far_root)
     colours = _to_image(ro, st[9:12], width, height).permute(1, 2, 0)
     record = _to_image(ro, rec, width, height).reshape(max_depth, -1)
     if with_pay:
@@ -782,6 +937,8 @@ def render_pallas_record_twophase(scene: PallasScene, cam: Camera,
                                   max_depth: int = MAX_DEPTH,
                                   phase1_depth: int = 6,
                                   tile: int = DEFAULT_TILE,
+                                  far_root: bool = True,
+                                  cull: bool | None = None,
                                   block: tuple | None = None,
                                   schedule: tuple | None = None,
                                   sort_prefix: tuple | None = None,
@@ -812,7 +969,8 @@ def render_pallas_record_twophase(scene: PallasScene, cam: Camera,
     ``sort_prefix[k]`` share of the rays (rounded to tiles) and leaves the
     rest in place, which is exact for any survival rate.  Per-ray arithmetic
     is the single-phase record's, so the colours are bit-identical to
-    ``render_pallas_record``'s."""
+    ``render_pallas_record``'s.  ``far_root`` and ``cull`` pass to every
+    launch."""
     if schedule is None:
         schedule = (phase1_depth,)
     if sum(schedule) >= max_depth:
@@ -832,7 +990,8 @@ def render_pallas_record_twophase(scene: PallasScene, cam: Camera,
         st, _, rec, pay = kernel(scene, ro.params, Rp, tile,
                                  block_tiled=(k == 0 and block is not None),
                                  state_in=state_in, emit_state=True,
-                                 record_depth=depth, record_pay=True)
+                                 record_depth=depth, record_pay=True,
+                                 cull=cull, far_root=far_root)
         recs.append(rec)
         pays.append(pay)
         if k == len(schedule):

@@ -47,6 +47,14 @@ def search_m(q: Quad, sq, epsa):
     return torch.where((q.disc > 0.0) & (m > epsa), m, BIG)
 
 
+def search_m_near(q: Quad, sq, epsa):
+    """m = a*t of the near root beyond ``epsa``, else BIG: the near-root-only
+    search (``far_root=False``).  A miss's NaN ``sq`` fails both comparisons,
+    so it falls to BIG through them, as in the kernel."""
+    m0 = -q.b - sq
+    return torch.where((q.disc > 0.0) & (m0 > epsa), m0, BIG)
+
+
 def key_floor(m: torch.Tensor) -> torch.Tensor:
     """m with its 7 lane bits cleared, as the packed key holds it."""
     return (m.view(torch.int32) & KEY_MASK).view(torch.float32)

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: K1 (all
-modes, K1d's records included), K2, the backward replay, and K3, the
+modes, K1d's records and K1f's widths, near-root search and forced
+occlusion gate included), K2, the backward replay, and K3, the
 per-ray traversal; and the BVH build on the card against the CPU build.
 
 These tests need an NVIDIA card and skip without one (the kernels are CUDA
@@ -259,6 +260,70 @@ def test_scene_scale_record_kernel_equals_plain(cuda):
     tmk.render_pallas_record(ps, cam, SIZE, SIZE, max_depth=5, tile=256,
                              with_pay=True, block=(16, 16), kernel=both)
     assert both.launches == 1
+
+
+@pytest.mark.parametrize("depth", [1, 50])
+@pytest.mark.parametrize("mode", ["width64", "width32", "near_root"])
+@pytest.mark.parametrize("name", ["rgbbox", "irreg"])
+def test_k1f_kernel_equals_plain(cuda, name, mode, depth):
+    """K1f: clusters of 64 and 32 spheres (irreg then takes the two-level
+    cull) and the near-root-only search, images and counters bit-equal to
+    the plain version's, block-tiled."""
+    sc = tscenes.by_name(name, device=cuda)
+    width = {"width64": 64, "width32": 32}.get(mode)
+    ps = tmk.build_pallas_scene(sc.spheres, sort_origin=sc.look_from,
+                                cluster_width=width)
+    cam = tgeo.camera(sc.look_from, sc.look_at, (0., 1., 0.), sc.fov, 1.0,
+                      device=cuda)
+    both = _Both()
+    _, stats = tmk.render_pallas(ps, cam, SIZE, SIZE, max_depth=depth,
+                                 tile=256, block=(16, 16), with_stats=True,
+                                 far_root=mode != "near_root", kernel=both)
+    assert both.launches == 1 and stats["slot_tests"] > 0
+
+
+@pytest.mark.parametrize("name", ["rgbbox", "irreg"])
+def test_k1f_compaction_options_equal_plain(cuda, name):
+    """The forced occlusion gate (``occl_cont``, C = 4 at rgbbox), the
+    coherent repacking, segments and ``tile2``: every launch bit-equal to
+    the plain version, and each image equal to one launch's."""
+    ps, cam = _scene(name, cuda)
+    kw = dict(max_depth=50, tile=256, block=(16, 16))
+    one = tmk.render_pallas(ps, cam, SIZE, SIZE, **kw)
+    for extra in (dict(coherent=True, occl_cont=True),
+                  dict(seg_tiles=4, tile2=512, lane_groups=2)):
+        both = _Both()
+        img = tmk.render_pallas_twophase(ps, cam, SIZE, SIZE,
+                                         schedule=(3, 8), kernel=both,
+                                         **extra, **kw)
+        assert both.launches == 3 and torch.equal(img, one)
+
+
+def test_k1f_record_and_engine_at_width_64(cuda):
+    """K1d at W = 64 bit-equal to its plain version; the engine at W = 64
+    with K2 checked against its plain version, its gradients equal to the
+    W = 128 engine's up to the slot tables' summation order."""
+    sc = tscenes.by_name("irreg", device=cuda)
+    cam = tgeo.camera(sc.look_from, sc.look_at, (0., 1., 0.), sc.fov, 1.0,
+                      device=cuda)
+    ps = tmk.build_pallas_scene(sc.spheres, cluster_width=64)
+    both = _Both()
+    tmk.render_pallas_record(ps, cam, SIZE, SIZE, max_depth=50, tile=256,
+                             with_pay=True, block=(16, 16), kernel=both)
+    assert both.launches == 1
+    grads = []
+    for width in (None, 64):
+        f = make_render_pallas_diff(SIZE, SIZE, max_depth=50, tile=256,
+                                    block=(16, 16), schedule=(3, 6),
+                                    cluster_width=width, bwd_kernel=_BothK2())
+        leaves = [t.detach().requires_grad_(True) for t in (*sc.spheres,
+                                                            *cam)]
+        img = f(tgeo.Spheres(*leaves[:3]), tgeo.Camera(*leaves[3:]))
+        (img * img).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.isfinite(b).all() and b.abs().max() > 0
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()
 
 
 @pytest.mark.parametrize("depth", [1, 50])

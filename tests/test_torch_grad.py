@@ -104,8 +104,11 @@ def test_render_diff_vs_jax():
 
 
 def test_gather_modes_and_remat_agree():
-    """``gather="onehot"`` computes the gather "take" does, and ``remat``
-    recomputes the same steps: values and gradients bit-identical."""
+    """``gather="onehot"`` computes the gather "take" does, ``remat``
+    recomputes the same steps, and ``skip_dead`` skips only step groups in
+    which every ray is inactive, each the identity: values and gradients
+    bit-identical to the dense replay (here at depth 12, where the last
+    group of 8 steps has no live ray)."""
     (_, _), (sph, cam) = _setup()
     o, d = primary_rays(cam, S, S)
     idxs, events = tdr.trace_paths(tbf.make_closest_hit(sph), sph, o, d,
@@ -123,8 +126,18 @@ def test_gather_modes_and_remat_agree():
             assert torch.equal(a, b)
     with pytest.raises(ValueError, match="gather"):
         tdr.replay_paths(sph, o, d, idxs, events, gather="dot")
-    with pytest.raises(NotImplementedError, match="skip_dead"):
-        tdr.replay_paths(sph, o, d, idxs, events, skip_dead=True)
+    pad = torch.full((12 - DEPTH,) + tuple(events.shape[1:]),
+                     tdr.EV_INACTIVE, dtype=events.dtype)
+    idxs = torch.cat([idxs, torch.zeros_like(pad, dtype=idxs.dtype)])
+    events = torch.cat([events, pad])
+    skip = []
+    for skip_dead in (False, True):
+        leaves = _leaves(sph)
+        col = tdr.replay_paths(leaves, o, d, idxs, events, skip_dead=skip_dead)
+        (col * col).sum().backward()
+        skip.append([col.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*skip):
+        assert torch.equal(a, b)
 
 
 def test_gradients_finite_where_rays_miss():

@@ -185,10 +185,25 @@ def test_forward_matches_jax_engine():
 
 
 def test_not_ported_options_raise():
-    for kw in (dict(bwd_chunks=4), dict(sort_by_depth=True),
-               dict(skip_dead=True), dict(cluster_width=64)):
-        with pytest.raises(NotImplementedError):
-            make_render_pallas_diff(W, H, **kw)
+    """The options that once raised as not ported are accepted and run:
+    ``bwd_chunks``, ``sort_by_depth`` and ``skip_dead`` of the xla backward,
+    ``cluster_width`` of the K2 engine (on a scene of more than 128
+    spheres); each gives the default engine's image and finite gradients.
+    An unknown backward still raises."""
+    sph = tscenes.random_spheres(300, seed=3, extent=10.0, device=CPU)
+    cam = tgeo.camera((0., 1., 25.), (0., 0., 0.), (0., 1., 0.), 60.0, 1.0,
+                      device=CPU)
+    base = dict(max_depth=3, tile=256)
+    img0, _ = _port_grads(make_render_pallas_diff(16, 16, **base), sph, cam)
+    for kw in (dict(backward="xla", bwd_chunks=4),
+               dict(backward="xla", bwd_chunks=4, sort_by_depth=True),
+               dict(backward="xla", skip_dead=True),
+               dict(cluster_width=64), dict(cluster_width=32)):
+        img, grads = _port_grads(make_render_pallas_diff(16, 16, **base,
+                                                         **kw), sph, cam)
+        assert torch.equal(img, img0), kw
+        assert all(torch.isfinite(g).all() for g in grads), kw
+        assert grads[0].abs().max() > 0, kw
     with pytest.raises(ValueError, match="backward"):
         make_render_pallas_diff(W, H, backward="nope")
 
