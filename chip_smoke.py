@@ -85,7 +85,20 @@ a failed phase exits non-zero before the final line:
    takes at most 60 s): step times, peak memory, the sorted gradients
    against the unsorted ones, the gap to ``backward="pallas"`` over the
    whole image (printed), and over the pixels whose float64 replay gives
-   their float32 colour within 1e-6 (held to the tests' tolerances).
+   their float32 colour within 1e-6 (held to the tests' tolerances);
+10. the probes M1-M4 of ``tools/microbench_tpu.py`` (``[probe]`` lines):
+   ``probes.microbench.run`` at the TPU probes' sizes, launches counted from
+   zero around it: M1's FP32 issue rate (uncontracted and FMA at 8, 4 and
+   1 streams) and sqrtf, division and 1/x; M2's pair, pairT and payload
+   products as an FP32 loop, TF32 and 3xTF32 mma.sync (with ``torch.bmm``
+   as the library call); M3's 128-key minimum, serial, shuffled and
+   ``__reduce_min_sync`` (with ``torch.amin``); M4's cluster visit, a
+   thread or a warp per ray at 4k, 64k and 1M rays, on the TPU probe's
+   spheres and a seeded set.  Every variant is held against its plain
+   version on the card (bit-equal, but M1's FMA and M2's TF32 routes
+   within their stated bounds).  Phase 1 also times M1's square root,
+   division and 1/x, and prints them beside the weights the bounds charge
+   (``SQRT_OPS``, ``DIV_OPS``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -124,18 +137,35 @@ WARP = 32
 # fused multiply-add counted as 2 flops; 3.35 TB/s of HBM.
 FP32_LANE_OPS_PER_S = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
-# lane operations per unit of counted work, counted in csrc/megakernel.cu
-OPS_PER_SLOT = 30               # one (ray, sphere) test of the visit loop
-OPS_PER_SLOT_NEAR = 27          # the same, near-root search (far_root=False)
-OPS_PER_CULL_ROW = 25           # one AABB slab test and occlusion gate
-OPS_PER_BOUNCE = 60             # per-bounce set-up, readback and shading
+# An IEEE square root and an IEEE division (the kernels build with
+# -prec-sqrt=true -prec-div=true and divide as 1.0f / x) in multiply-
+# equivalents: M1's uncontracted FMUL + FADD lane-op rate over the
+# operation's rate at 8 streams (probes/microbench.py; the record
+# docs/MICROBENCH_H100.json, NVIDIA H100 80GB HBM3, 700.00 W).  The bounds
+# charge each at that weight; phase 1 prints the run's own measurement.
+SQRT_OPS = 8.78
+DIV_OPS = 8.71
+
+
+def _ops(plain: int, sqrt: int = 0, div: int = 0) -> float:
+    """Lane operations of a unit of work: its plain float32 operations,
+    and its square roots and divisions at M1's weights."""
+    return plain + sqrt * SQRT_OPS + div * DIV_OPS
+
+
+# K1's lane operations per unit of counted work, broken down in
+# csrc/megakernel.cu's header
+OPS_PER_SLOT = _ops(29, sqrt=1)         # one (ray, sphere) test of the visit
+OPS_PER_SLOT_NEAR = _ops(26, sqrt=1)    # the same, near root (far_root=False)
+OPS_PER_CULL_ROW = _ops(25)             # one AABB slab test and occlusion gate
+OPS_PER_BOUNCE = _ops(52, sqrt=2, div=6)   # set-up, readback and shading
 STATE_BYTES = 13 * 4            # the ray state a phase reads or writes
 # K2's lane operations per replayed step, counted in csrc/replay_bwd.cu and
-# csrc/ray_math.cuh (a square root or a division counted as one): a bounce
-# replayed in pass 1 (110) and replayed and reversed in pass 2 (254), or a
-# step that ends the path (a miss: its colour, then the carry's seed)
-OPS_PER_K2_BOUNCE = 364
-OPS_PER_K2_END = 65
+# csrc/ray_math.cuh: a bounce replayed in pass 1 (104 and 3 square roots, 3
+# divisions) and replayed and reversed in pass 2 (247, 3, 4), or a step
+# that ends the path (a miss: its colour, then the carry's seed; 61, 2, 2)
+OPS_PER_K2_BOUNCE = _ops(351, sqrt=6, div=7)
+OPS_PER_K2_END = _ops(61, sqrt=2, div=2)
 K2_SCRATCH_BYTES = 2 * 9 * 4    # o, d, light of a step, written and read
 PAY_BYTES = 28                  # the winner's 7 fields, at a bounce
 F32_EPS = 2.0 ** -24            # float32 unit roundoff
@@ -147,8 +177,10 @@ F32_FTZ = 2.0 ** -125
 # csrc/traversal.cu's header: an inner-node slab test, a sphere slot tested,
 # one with a positive discriminant, a far root tried, a bounce that hits, one
 # that ends on the sky, and a ray's primary direction and packing
-K3_OPS = dict(node_steps=39, slot_tests=21, slot_roots=6, far_roots=5,
-              hit_bounces=81, sky_bounces=28, rays=27)
+K3_OPS = dict(node_steps=_ops(39), slot_tests=_ops(21),
+              slot_roots=_ops(5, sqrt=1), far_roots=_ops(5),
+              hit_bounces=_ops(73, sqrt=2, div=6),
+              sky_bounces=_ops(22, sqrt=1, div=5), rays=_ops(27))
 # the BVH build's soup (bench.py:249-267) and its leaf sizes
 BVH_SOUP, BVH_LEAVES = (1_000_000, 0), (128, 8)
 
@@ -364,6 +396,11 @@ def phase_card_and_build() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
+    from raytracers_tpu_torch.probes import microbench as mb
+    w = mb.measure_mul_equivalents()
+    log(f"[build] M1 here: sqrtf {w['sqrt']:.3f}, division {w['div']:.3f}, "
+        f"1/x {w['rcp']:.3f} multiply-equivalents; the bounds charge "
+        f"SQRT_OPS = {SQRT_OPS}, DIV_OPS = {DIV_OPS}")
 
 
 def _prepare(port, name: str, size: int):
@@ -1675,8 +1712,35 @@ def phase_k1f(port) -> dict:
     return dict(checkers=checkers, cells=cells, fwdbwd=fwdbwd, xla=xla)
 
 
+def phase_probes() -> dict:
+    """Phase 10, the probes M1-M4 (``[probe]`` lines): every variant at the
+    TPU probes' sizes through ``microbench.run``, with the launch counts
+    set to 0 just before and read just after; each variant timed, held
+    against its plain version on the same inputs (bit-equal, M1's FMA
+    within its steps' ulps, M2's TF32 routes within their rounding bound)
+    and given its bound."""
+    from raytracers_tpu_torch.probes import microbench as mb
+    t0 = time.perf_counter()
+    mb.LAUNCHES.clear()
+    try:
+        rec = mb.run(log=log)
+    except mb.ProbeMismatch as e:
+        raise SmokeError(f"probe: {e}") from e
+    launches = dict(mb.LAUNCHES)
+    missing = sorted({e["label"] for e in rec["entries"]} - set(launches))
+    if missing:
+        raise SmokeError(f"probe: no launch counted for {missing}")
+    w = rec["mul_equivalents"]
+    log(f"[probe] launches {launches}")
+    log(f"[probe] M1: sqrtf {w['sqrt']:.3f}, division {w['div']:.3f}, 1/x "
+        f"{w['rcp']:.3f} multiply-equivalents; clocks.sm "
+        f"{rec['clocks_sm_mhz']}; phase 10 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(rec=rec, launches=launches)
+
+
 def _kernels_record(checkers, diff_checkers, results, fb_results,
-                    k3_checkers, k3_results, k1f) -> list:
+                    k3_checkers, k3_results, k1f, probes) -> list:
     """One entry per kernel and scene: K1 from the render main path, K1d
     and K2 from the fwd+bwd main path, K3 from the BVH main path, K1f's
     modes from phase 9's cells and its W = 64 fwd+bwd steps;
@@ -1764,6 +1828,16 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             ms=r["k2_ms"], plain_ms=r["plain_k2_ms"],
             bound_ms=r["k2_bound_ms"], bound_by=r["k2_bound_by"],
             library_ms=r["k2_library_ms"]))
+    from raytracers_tpu_torch.probes.microbench import REPLACES
+    src_mb = str(_cuda.source("microbench").relative_to(ROOT))
+    for e in probes["rec"]["entries"]:
+        out.append(dict(
+            name=e["name"], route="cuda", source=src_mb,
+            replaces=REPLACES[e["probe"]],
+            launches=probes["launches"][e["label"]],
+            max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
+            bound_ms=e["bound_ms"], bound_by=e["bound_by"],
+            library_ms=e["library_ms"]))
     return out
 
 
@@ -1790,12 +1864,13 @@ def main() -> int:
         k3_checkers = phase_bvh_vs_plain(port)
         k3_results = phase_bvh_main(port, k3_checkers)
         k1f = phase_k1f(port)
+        probes = phase_probes()
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": _kernels_record(
         checkers, diff_checkers, results, fb_results, k3_checkers,
-        k3_results, k1f)}))
+        k3_results, k1f, probes)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

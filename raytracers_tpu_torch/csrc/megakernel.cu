@@ -11,12 +11,21 @@
 // key-floor bucket can be dropped, and the plain torch version
 // (render/megakernel.py:megakernel_reference) applies the same per-ray gates.
 //
-// What bounds it on this card: FP32 issue on the visit math, about 30 lane
-// operations per (ray, sphere) slot with FMA contraction off: the quadratic
-// 17 (oc 3, b 5, c 6, disc 3), the square root 1, the far-root search 9
-// (-b - sq, -b + sq, two window compares, disc > 0, an and, two selects,
-// the lane loop's own step) and the key 3 (mask, lane, min).  The near-root
-// search (kFarRoot = false) drops -b + sq, one compare and one select: 27.
+// What bounds it on this card: FP32 issue on the visit math.  Per (ray,
+// sphere) slot, with FMA contraction off, 29 plain lane operations and one
+// IEEE square root: the quadratic 17 (oc 3, b 5, c 6, disc 3), the far-root
+// search 9 (-b - sq, -b + sq, two window compares, disc > 0, an and, two
+// selects, the lane loop's own step) and the key 3 (mask, lane, min).  The
+// near-root search (kFarRoot = false) drops -b + sq, one compare and one
+// select: 26 and the root.  An AABB row of the cull and occlusion gate: 25
+// plain.  A bounce (set-up, readback and shading): 52 plain (an
+// estimate), 2 square roots (the re-intersection's, and sqrtf(a) of the unit
+// direction) and 6 divisions (1/dx, 1/dy, 1/dz, 1/a, 1/rad, 1/sqrtf(a)).
+// -prec-sqrt and -prec-div make a square root and a division sequences of a
+// MUFU instruction, refinement and a slow-path branch: M1
+// (csrc/microbench.cu) measures each at 8.84 and 8.77 multiply-equivalents
+// (docs/MICROBENCH_H100.json, NVIDIA H100 80GB HBM3, 700.00 W), so a slot
+// test is charged 37.84 lane operations (chip_smoke.py, SQRT_OPS, DIV_OPS).
 // Its data is a
 // few hundred KB (irreg's sphere table is 316 KB), resident in L2; the bytes
 // it must move (ray state in and out) are far below the operations' time.

@@ -28,10 +28,17 @@
 // equality with the plain version (grad/replay_bwd.py).
 //
 // What bounds it on this card: its bytes.  Per replayed step a ray reads its
-// record (4 B) and the winner's fields (28 B) twice, writes and reads 36 B of
-// scratch, and does about 200 float32 lane operations; the operations'
-// time is the larger at the card's peak rates, but rays stop at their own
-// path lengths, so warps run as long as their longest path.  The simple
+// record (4 B) and the winner's fields (28 B) twice and writes and reads 36
+// B of scratch.  A replayed bounce costs 351 plain float32 lane operations,
+// 6 IEEE square roots and 7 divisions: pass 1 104, 3 and 3 (the search's
+// sqrtf(disc); the re-intersection's root, 1/a, 1/rad, sqrtf(a) and
+// 1/sqrtf(a)), pass 2 the same replay and the reversal, 247, 3 and 4 (0.5f
+// / sq); a step that ends the path on the sky 61, 2, 2 (1/sqrtf(a) in each
+// pass).  M1 (csrc/microbench.cu) measures a root and a division at 8.84
+// and 8.77 multiply-equivalents (docs/MICROBENCH_H100.json, NVIDIA H100
+// 80GB HBM3, 700.00 W); at those weights the operations' time stays below
+// the bytes' at the card's peak rates.  Rays stop at their own path
+// lengths, so warps run as long as their longest path.  The simple
 // design keeps every per-step access coalesced (step-major layouts, one
 // thread per ray) and reads nothing of a step after the ray's death.
 //

@@ -21,24 +21,30 @@
 // leaf skips 512 B, spheres K x 4 KB: 316 KB at K = 79) is read from L1/L2,
 // and the bytes it must move (the packed image) are far below the
 // operations' time.  Lane operations counted in this source, each float32
-// add, subtract, multiply, division, square root, conversion, comparison,
-// min, max and select as one (loads, integer and predicate logic not
-// counted); the plain version counts how often each part runs:
+// add, subtract, multiply, conversion, comparison, min, max and select as
+// one (loads, integer and predicate logic not counted), and each IEEE square
+// root and division at the multiply-equivalents M1 measures
+// (csrc/microbench.cu: 8.84 and 8.77, docs/MICROBENCH_H100.json), written
+// below as plain + roots + divisions; the plain version counts how often
+// each part runs:
 //   * every sphere slot tested (sphere_t to the discriminant's sign, and the
 //     caller's compare and update): 3 (oc) + 5 (b) + 7 (c) + 3 (disc) + 1
-//     (disc > 0) + 2 (t < best_t, the select of best_t) = 21;
-//   * a slot with disc > 0 adds sqrtf 1 + t0 2 + its window 2 + select 1 = 6;
+//     (disc > 0) + 2 (t < best_t, the select of best_t) = 21 plain;
+//   * a slot with disc > 0 adds t0 2 + its window 2 + select 1 = 5 plain
+//     and sqrtf;
 //   * a far root tried (far_root, the near one outside the window) adds
 //     t1 2 + its window 2 + select 1 = 5;
 //   * an inner-node slab test, per axis: t0 2 + t1 2 + the two selects on
 //     the sign of inv 2 + nan_max 3 (unordered test, fmaxf, select) +
 //     nan_min 3 + the fail test 1 = 13, so 39 (the sign tests are hoisted);
-//   * a bounce's set-up: a 5 + 1/a 1 + the three 1/d 3 + their sign tests
-//     3 + the hit test 1 = 13; then a hit's re-intersection and shading 68
-//     (oc 3, b 5, c 7, disc 3, its guard 2, sqrtf 1, t0 2, t1 2, w_hi 1,
-//     the window 3, p 6, 1/r 1, n 6, 1/sqrtf(a) 2, u 3, u.n 5, r 7, the
-//     scatter test 6, the light 3): 81 a hit bounce; or the sky's 15
-//     (sqrtf and 1/ 2, uy 1, t 2, the gradient 7, the light 3): 28 a miss;
+//   * a bounce's set-up: a 5 + the three sign tests of 1/d 3 + the hit
+//     test 1 = 9 plain, and 1/a and the three 1/d (4 divisions); then a
+//     hit's re-intersection and shading, 64 plain (oc 3, b 5, c 7, disc 3,
+//     its guard 2, t0 2, t1 2, w_hi 1, the window 3, p 6, n 6, u 3, u.n 5,
+//     r 7, the scatter test 6, the light 3), 2 roots (sqrtf(disc),
+//     sqrtf(a)) and 2 divisions (1/r, 1/sqrtf(a)): a hit bounce 73 plain, 2
+//     roots, 6 divisions; or the sky's 13 plain (uy 1, t 2, the gradient 7,
+//     the light 3), sqrtf(a) and 1/: a miss 22 plain, 1 root, 5 divisions;
 //   * every ray: its primary direction 21 and the packing 6 = 27.
 // The simple design: the inner table and the leaf skips
 // sit in shared memory, the sphere table is read through the read-only path,
