@@ -86,7 +86,8 @@ a failed phase exits non-zero before the final line:
    against the unsorted ones, the gap to ``backward="pallas"`` over the
    whole image (printed), and over the pixels whose float64 replay gives
    their float32 colour within 1e-6 (held to the tests' tolerances);
-10. the probes M1-M4 of ``tools/microbench_tpu.py`` (``[probe]`` lines):
+10. the probes M1-M7 of ``tools/microbench_tpu.py``, ``microbench_v5.py``
+   and ``microbench_mxuquad.py`` (``[probe]`` lines); first M1-M4:
    ``probes.microbench.run`` at the TPU probes' sizes, launches counted from
    zero around it: M1's FP32 issue rate (uncontracted and FMA at 8, 4 and
    1 streams) and sqrtf, division and 1/x; M2's pair, pairT and payload
@@ -98,7 +99,19 @@ a failed phase exits non-zero before the final line:
    version on the card (bit-equal, but M1's FMA and M2's TF32 routes
    within their stated bounds).  Phase 1 also times M1's square root,
    division and 1/x, and prints them beside the weights the bounds charge
-   (``SQRT_OPS``, ``DIV_OPS``).
+   (``SQRT_OPS``, ``DIV_OPS``).  Then ``probes.microbench_v5.run`` and
+   ``probes.microbench_mxuquad.run``: M5's visit at 32, 64 and 128 rows,
+   payload read each visit (``mxu``) or deferred (``defer``), a thread or a
+   warp per ray, at 8,192, 65,536 and 1,048,576 rays; M6's deferred 8-field
+   gather, 4 and 1 chunks, through ``__ldg`` or shared memory, at 8,192 and
+   1,048,576 lanes (with ``tbl[:, slot]`` indexing timed beside it); M7's
+   five variants, the FP32 quadratic (``vpu``) or bf16 ``mma.sync``
+   (``mxuquad``, splits 1 and 3), at 8,192 and 1,048,576 rays (with
+   ``torch.matmul`` of the bf16 operands), on the TPU probes' inputs and a
+   seeded set.  M5, M6 and M7's ``vpu`` are bit-equal to their plain
+   versions; ``mxuquad``'s product lies within its bound of the float64
+   product and its visit is bit-equal given that product, and the rays
+   whose winner equals the ``vpu`` visit's are printed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1713,30 +1726,39 @@ def phase_k1f(port) -> dict:
 
 
 def phase_probes() -> dict:
-    """Phase 10, the probes M1-M4 (``[probe]`` lines): every variant at the
-    TPU probes' sizes through ``microbench.run``, with the launch counts
-    set to 0 just before and read just after; each variant timed, held
-    against its plain version on the same inputs (bit-equal, M1's FMA
-    within its steps' ulps, M2's TF32 routes within their rounding bound)
-    and given its bound."""
+    """Phase 10, the probes M1-M7 (``[probe]`` lines): every variant at the
+    TPU probes' sizes through ``microbench.run``, ``microbench_v5.run`` and
+    ``microbench_mxuquad.run``, with the launch counts set to 0 just before
+    and read just after; each variant timed, held against its plain version
+    on the same inputs (bit-equal; M1's FMA within its steps' ulps, M2's
+    TF32 routes within their rounding bound, M7's mxuquad product within
+    its bound and its visit bit-equal given that product) and given its
+    bound.  M5 and M7 charge a root and 1/a at the M1 weights measured
+    here."""
     from raytracers_tpu_torch.probes import microbench as mb
+    from raytracers_tpu_torch.probes import microbench_mxuquad as mq
+    from raytracers_tpu_torch.probes import microbench_v5 as v5
     t0 = time.perf_counter()
     mb.LAUNCHES.clear()
     try:
         rec = mb.run(log=log)
+        w = rec["mul_equivalents"]
+        t1 = time.perf_counter()
+        rec_v5 = v5.run(log=log, weights=w)
+        rec_mq = mq.run(log=log, weights=w)
     except mb.ProbeMismatch as e:
         raise SmokeError(f"probe: {e}") from e
     launches = dict(mb.LAUNCHES)
-    missing = sorted({e["label"] for e in rec["entries"]} - set(launches))
+    entries = rec["entries"] + rec_v5["entries"] + rec_mq["entries"]
+    missing = sorted({e["label"] for e in entries} - set(launches))
     if missing:
         raise SmokeError(f"probe: no launch counted for {missing}")
-    w = rec["mul_equivalents"]
     log(f"[probe] launches {launches}")
     log(f"[probe] M1: sqrtf {w['sqrt']:.3f}, division {w['div']:.3f}, 1/x "
         f"{w['rcp']:.3f} multiply-equivalents; clocks.sm "
-        f"{rec['clocks_sm_mhz']}; phase 10 in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return dict(rec=rec, launches=launches)
+        f"{rec['clocks_sm_mhz']}; M5-M7 in {time.perf_counter() - t1:.1f} s;"
+        f" phase 10 in {time.perf_counter() - t0:.1f} s")
+    return dict(entries=entries, launches=launches)
 
 
 def _kernels_record(checkers, diff_checkers, results, fb_results,
@@ -1828,11 +1850,10 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             ms=r["k2_ms"], plain_ms=r["plain_k2_ms"],
             bound_ms=r["k2_bound_ms"], bound_by=r["k2_bound_by"],
             library_ms=r["k2_library_ms"]))
-    from raytracers_tpu_torch.probes.microbench import REPLACES
-    src_mb = str(_cuda.source("microbench").relative_to(ROOT))
-    for e in probes["rec"]["entries"]:
+    from raytracers_tpu_torch.probes.microbench import KERNEL_OF, REPLACES
+    for e in probes["entries"]:
         out.append(dict(
-            name=e["name"], route="cuda", source=src_mb,
+            name=e["name"], route="cuda", source=src[KERNEL_OF[e["probe"]]],
             replaces=REPLACES[e["probe"]],
             launches=probes["launches"][e["label"]],
             max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],

@@ -78,7 +78,13 @@ INPUT_SEED = 6
 
 # the TPU kernel each probe replaces
 REPLACES = {"M1": "tools/microbench_tpu.py:44", "M2": "tools/microbench_tpu.py:75",
-            "M3": "tools/microbench_tpu.py:134", "M4": "tools/microbench_tpu.py:170"}
+            "M3": "tools/microbench_tpu.py:134", "M4": "tools/microbench_tpu.py:170",
+            "M5": "tools/microbench_v5.py:50", "M6": "tools/microbench_v5.py:135",
+            "M7": "tools/microbench_mxuquad.py:44"}
+# the kernel library of render/_cuda.py that holds each probe
+KERNEL_OF = {"M1": "microbench", "M2": "microbench", "M3": "microbench",
+             "M4": "microbench", "M5": "microbench_v5", "M6": "microbench_v5",
+             "M7": "microbench_mxuquad"}
 
 # H100 SXM published peaks at a 700 W power limit (NVIDIA's data sheet):
 # 67 TFLOP/s float32 outside the tensor cores (33.5e12 lane operations a
@@ -125,15 +131,18 @@ def _expect(t: torch.Tensor, shape, dtype, what: str) -> None:
                          f"{tuple(t.shape)} {t.dtype}")
 
 
-def _launch(label, probe, variant, arg, iters, size, salt, in0, in1, out):
+def _launch(label, out, *args, kernel="microbench"):
+    """Launch ``kernel``'s C entry point with ``args`` (tensors and None as
+    pointers, ints as they are) and the current stream of ``out``'s card;
+    count the launch under ``label``; return ``out``."""
     from ..render import _cuda
-    fn = _cuda.load("microbench")
+    fn = _cuda.load(kernel)
     stream = ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream)
-    rc = fn(probe, variant, arg, iters, size, _ptr(salt), _ptr(in0),
-            _ptr(in1), _ptr(out), stream)
+    rc = fn(*(_ptr(a) if a is None or isinstance(a, torch.Tensor) else a
+              for a in args), stream)
     if rc != 0:
         raise RuntimeError(f"{label} launch failed: "
-                           + _cuda.error_string("microbench", rc))
+                           + _cuda.error_string(kernel, rc))
     LAUNCHES[label] += 1
     return out
 
@@ -157,7 +166,7 @@ def fma(salt: torch.Tensor, n: int, streams: int, iters: int,
     if not _on_card(salt):
         return fma_plain(salt, n, streams, iters, mode)
     out = torch.empty(n, dtype=F32, device=salt.device)
-    return _launch(fma_label(mode, streams), 0, FMA_MODES.index(mode),
+    return _launch(fma_label(mode, streams), out, 0, FMA_MODES.index(mode),
                    streams, iters, n, salt, None, None, out)
 
 
@@ -210,7 +219,7 @@ def dot(salt, a, b, kind="pair", iters=DOT_ITERS, grid=DOT_GRID,
     if not _on_card(salt, a, b):
         return dot_plain(salt, a, b, kind, iters, grid)
     out = torch.empty((grid,) + so, dtype=F32, device=a.device)
-    return _launch(dot_label(kind, route), 1, DOT_ROUTES.index(route),
+    return _launch(dot_label(kind, route), out, 1, DOT_ROUTES.index(route),
                    DOT_KINDS.index(kind), iters, grid, salt, a, b, out)
 
 
@@ -286,7 +295,7 @@ def reduce_min(v0, iters=REDUCE_ITERS, grid=REDUCE_GRID, way="serial"):
     if not _on_card(v0):
         return reduce_plain(v0, iters, grid)
     out = torch.empty((grid, 1, T), dtype=v0.dtype, device=v0.device)
-    return _launch(reduce_label(dname, way), 2, REDUCE_WAYS.index(way),
+    return _launch(reduce_label(dname, way), out, 2, REDUCE_WAYS.index(way),
                    0 if v0.dtype == F32 else 1, iters, grid, None, v0, None,
                    out)
 
@@ -320,9 +329,8 @@ def visit(salt, sphT, sph8, n_rays, iters=VISIT_ITERS, way="thread"):
     if not _on_card(salt, sphT, sph8):
         return visit_plain(salt, sphT, sph8, n_rays, iters)
     out = torch.empty((n_rays // T, 8, T), dtype=F32, device=salt.device)
-    return _launch(visit_label(way, n_rays), 3, VISIT_WAYS.index(way), 0,
-                   iters,
-                   n_rays, salt, sphT, sph8, out)
+    return _launch(visit_label(way, n_rays), out, 3, VISIT_WAYS.index(way),
+                   0, iters, n_rays, salt, sphT, sph8, out)
 
 
 def _fake_rays(salt):

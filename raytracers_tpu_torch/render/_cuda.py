@@ -43,6 +43,12 @@ KERNELS = {
     # the probes M1-M4 behind one launch function with a probe selector
     "microbench": ("microbench.cu", "rt_microbench_launch",
                    [_i, _i, _i, _i, _i, _p, _p, _p, _p, _p]),
+    # M5 and M6 (tools/microbench_v5.py), then M7 (microbench_mxuquad.py)
+    "microbench_v5": ("microbench_v5.cu", "rt_microbench_v5_launch",
+                      [_i, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p]),
+    "microbench_mxuquad": ("microbench_mxuquad.cu",
+                           "rt_microbench_mxuquad_launch",
+                           [_i, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p]),
 }
 
 _lock = threading.Lock()

@@ -178,15 +178,17 @@ def test_port_sources_import_no_jax():
 
 def test_no_jax_checks_cover_the_probes():
     """The two checks above walk every module of the port: the probes
-    (``probes/``, the counterparts of tools/microbench_tpu.py) among them."""
+    (``probes/``, the counterparts of tools/microbench_tpu.py,
+    microbench_v5.py and microbench_mxuquad.py) among them."""
     import pkgutil
     import raytracers_tpu_torch as p
     srcs = {os.path.relpath(f, REPO) for f in _port_sources()}
+    mods = ("microbench", "microbench_v5", "microbench_mxuquad")
     assert {os.path.join("raytracers_tpu_torch", "probes", f)
-            for f in ("__init__.py", "microbench.py")} <= srcs
+            for f in ("__init__.py",) + tuple(m + ".py" for m in mods)} <= srcs
     walked = {m.name for m in pkgutil.walk_packages(p.__path__,
                                                     p.__name__ + ".")}
-    assert "raytracers_tpu_torch.probes.microbench" in walked
+    assert {f"raytracers_tpu_torch.probes.{m}" for m in mods} <= walked
 
 
 def test_port_imports_without_jax_subprocess():
