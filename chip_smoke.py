@@ -16,12 +16,13 @@ a failed phase exits non-zero before the final line:
    ``render_pallas`` (scanline and block tiles, depth 1 and 50: mode K1a)
    and ``render_pallas_twophase`` with the scene's class schedule and sort
    prefixes (K1a with state out, then K1b continuations), all with the
-   per-ray counters (K1c).  Every K1 launch is repeated by the plain version
-   on the same inputs on the card, and the images, state rows and counters
-   must be bit-equal.  Then the scene-scale mode (K1e, the two-level cull)
-   the same way at SCALE_CHECK_SIZE: plane-100k (depth 1 and its class
-   schedule to depth 50) and the 1M-sphere soup (depth 1 and 5), and the
-   culled depth-1 images against unculled launches;
+   per-ray counters (K1c).  Every K1 launch runs on both of the kernel's
+   routes (a thread per ray and a warp per ray) and is repeated by the
+   plain version on the same inputs on the card, and the images, state rows
+   and counters must be bit-equal.  Then the scene-scale mode (K1e, the
+   two-level cull) the same way at SCALE_CHECK_SIZE: plane-100k (depth 1
+   and its class schedule to depth 50) and the 1M-sphere soup (depth 1 and
+   5), and the culled depth-1 images against unculled launches;
 3. K1d and K2 against their plain versions at 200x200, both scenes, and on
    the 20k-sphere soup (C = 157, three cull blocks) at SOUP20K_CHECK_SIZE
    and depth SOUP20K_DEPTH:
@@ -34,9 +35,12 @@ a failed phase exits non-zero before the final line:
    (``emit_fwd``) bit-equal to K1d's at the full depth;
 4. goldens: ``render(mode="pallas")`` at 200x200 against ``tests/golden``;
 5. main path, render, for each cell: launches counted from zero around one
-   render, render times with CUDA events, per-phase K1 times, counters,
-   K1's bound, the warp lanes' share of the visit work, the image against
-   the plain version, and for the soup the render at twice the side.
+   render (and by route), render times with CUDA events, per-phase K1 times
+   on both routes in turns (the route rule's route, the other, the other,
+   the rule's; ``[routes]`` lines), what an all-dead continuation costs on
+   each route, counters, K1's bound, the thread-per-ray route's warp-lane
+   share of the visit work, the image against the plain version, and for
+   the soup the render at twice the side.
    rgbbox, irreg and plane-100k go through
    ``prepare_scene`` + ``render(mode="pallas")`` at 1000x1000, depth 50;
    the 1M-sphere soup through ``build_pallas_scene`` + ``render_pallas``
@@ -46,7 +50,8 @@ a failed phase exits non-zero before the final line:
    with the scene's ``pallas_diff_config``, then ``loss.backward()`` for
    ``loss = (f(spheres, cam) ** 2).sum()``: launches counted from zero
    around one step (K1d once a phase, K2 once a segment), finite non-zero
-   gradients, step times with CUDA events, per-launch K1d and K2 times, one
+   gradients, step times with CUDA events, per-launch K1d times on both
+   routes in turns as phase 5 times them, K2 times, one
    profiled step, the bounds, and the gradient against the plain engine on
    the card;
 7. the BVH path against its plain versions: ``build_bvh`` on the card
@@ -69,13 +74,14 @@ a failed phase exits non-zero before the final line:
    scanline and block, depth 1 and 50, and the class schedule; the forced
    occlusion gate (``occl_cont``) with ``coherent`` repacking, and
    ``seg_tiles`` + ``tile2`` + ``lane_groups``; K1d at W = 64; every launch
-   bit-equal to the plain version; the engine at W = 64 with every K2
-   launch checked as in phase 3 and its gradients against the W = 128
-   engine's.  Then the render cells at 1000x1000, depth 50, with the
-   default render's config, for both scenes: (a) W = 64, (b) W = 32,
+   on both routes bit-equal to the plain version; the engine at W = 64
+   with every K2 launch checked as in phase 3 and its gradients against
+   the W = 128 engine's.  Then the render cells at 1000x1000, depth 50,
+   with the default render's config, for both scenes: (a) W = 64, (b) W = 32,
    (c) ``far_root=False``, (d) ``coherent`` + ``occl_cont``, (e)
    ``seg_tiles=8, tile2=512, lane_groups=2``, each measured as phase 5
-   measures (launches, 3 rounds of 5 renders, per-phase K1 time, counters,
+   measures (launches, 3 rounds of 5 renders, per-phase K1 time on both
+   routes, counters,
    bound, the plain version's image bit-equal) and held to the default
    render: (e) and ``coherent`` alone bit-equal, the others within the
    depth-50 golden tolerances, with the differing pixels printed.  The
@@ -113,7 +119,8 @@ a failed phase exits non-zero before the final line:
    product and its visit is bit-equal given that product, and the rays
    whose winner equals the ``vpu`` visit's are printed.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (each K1 entry with
+the lanes per ray of each launch); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -130,6 +137,7 @@ SCENES = ("rgbbox", "irreg")
 SIZE, DEPTH = 1000, 50          # the main path's image and bounce cap
 CHECK_SIZE = 200                # phases 2 to 4
 REPEATS = 5                     # timed renders per scene
+ROUTE_REPS = 2                  # renders a turn when K1's routes alternate
 FB_REPEATS = 3                  # timed fwd+bwd steps per round
 SCALE_CHECK_SIZE = 64           # K1e against its plain version (phase 2)
 # K1d and K2 at three cull blocks (phase 3), at a depth whose mirror
@@ -170,8 +178,11 @@ def _ops(plain: int, sqrt: int = 0, div: int = 0) -> float:
 # csrc/megakernel.cu's header
 OPS_PER_SLOT = _ops(29, sqrt=1)         # one (ray, sphere) test of the visit
 OPS_PER_SLOT_NEAR = _ops(26, sqrt=1)    # the same, near root (far_root=False)
-OPS_PER_CULL_ROW = _ops(25)             # one AABB slab test and occlusion gate
-OPS_PER_BOUNCE = _ops(52, sqrt=2, div=6)   # set-up, readback and shading
+OPS_PER_CULL_ROW = _ops(48)             # one AABB slab test
+OPS_PER_GATE = _ops(3)                  # the occlusion gate, once a visit
+OPS_PER_BOUNCE = _ops(19, sqrt=1, div=4)   # every bounce: one to the sky
+OPS_PER_HIT = _ops(53, sqrt=1, div=2)   # more for one that hits (72, 2, 6)
+OPS_PER_MIRROR = _ops(3)                # more for a mirror bounce's light
 STATE_BYTES = 13 * 4            # the ray state a phase reads or writes
 # K2's lane operations per replayed step, counted in csrc/replay_bwd.cu and
 # csrc/ray_math.cuh: a bounce replayed in pass 1 (104 and 3 square roots, 3
@@ -254,13 +265,15 @@ def _abs_err(a, b, packed: bool) -> float:
 
 
 class Checked:
-    """K1 with each launch repeated by its plain version on the same inputs
-    on the card; any bit of difference fails the phase."""
+    """K1 with each launch run on both routes (a thread and a warp per ray)
+    and repeated by its plain version on the same inputs on the card; any
+    bit of difference fails the phase.  Returns the rule's route's result."""
 
     def __init__(self, mk, label: str):
         self.mk, self.label = mk, label
         self.checks = 0
         self.max_abs_err = 0.0
+        self.route_checks = {lanes: 0 for lanes in mk.LANES}
 
     def compare(self, what: str, out, ref, packed: bool = True) -> None:
         g = _first_diff(out, ref)
@@ -273,21 +286,33 @@ class Checked:
         self.checks += 1
 
     def __call__(self, scene, params, n_rays, tile, **kw):
-        out = self.mk.megakernel(scene, params, n_rays, tile, **kw)
-        ref = self.mk.megakernel_reference(scene, params, n_rays, tile, **kw)
-        what = "state rows" if kw.get("emit_state") else "packed image"
-        self.compare(what, out[0], ref[0])
-        if out[1] is not None:
-            self.compare("counters", out[1], ref[1], packed=False)
-        if kw.get("record_depth") is not None:
-            self.compare("records", out[2], ref[2], packed=False)
-            if out[3] is not None:
-                # pay is defined only at bounces
-                bnc = out[2] >= 0
-                self.compare("pay at bounces",
-                             out[3][:, :7].permute(1, 0, 2)[:, bnc],
-                             ref[3][:, :7].permute(1, 0, 2)[:, bnc])
-        return out
+        mk = self.mk
+        ref = mk.megakernel_reference(scene, params, n_rays, tile, **kw)
+        rule = _rule_lanes(mk, n_rays, kw)
+        outs = {lanes: mk.megakernel(scene, params, n_rays, tile,
+                                     _lanes=lanes, **kw)
+                for lanes in mk.LANES}
+        for lanes, out in outs.items():
+            route = f"{lanes} lane{'s' if lanes > 1 else ''} per ray: "
+            what = "state rows" if kw.get("emit_state") else "packed image"
+            self.compare(route + what, out[0], ref[0])
+            if out[1] is not None:
+                self.compare(route + "counters", out[1], ref[1], packed=False)
+            if kw.get("record_depth") is not None:
+                self.compare(route + "records", out[2], ref[2], packed=False)
+                if out[3] is not None:
+                    # pay is defined only at bounces
+                    bnc = out[2] >= 0
+                    self.compare(route + "pay at bounces",
+                                 out[3][:, :7].permute(1, 0, 2)[:, bnc],
+                                 ref[3][:, :7].permute(1, 0, 2)[:, bnc])
+            self.route_checks[lanes] += 1
+        return outs[rule]
+
+
+def _rule_lanes(mk, n_rays, kw) -> int:
+    """The lanes per ray the route rule gives a launch of these arguments."""
+    return mk.lanes_per_ray(n_rays, kw.get("state_in") is not None)
 
 
 def _slot_bound(rec, cot_step, n_slots):
@@ -383,6 +408,50 @@ class Timed:
         """Mean milliseconds of each phase over the renders timed."""
         ms = self.timer.ms()
         return [sum(ms[k]) / len(ms[k]) for k in range(self.n_phases)]
+
+
+class RouteTimed:
+    """K1 on a chosen route with CUDA events around each launch: ``"rule"``
+    runs the route rule's route, ``"other"`` the other one; the lanes per
+    ray of each phase's launch are kept."""
+
+    def __init__(self, mk, n_phases: int, which: str):
+        self.mk, self.which = mk, which
+        self.timed = Timed(self._launch, n_phases)
+        self.lanes = [None] * n_phases
+
+    def _launch(self, scene, params, n_rays, tile, **kw):
+        rule = _rule_lanes(self.mk, n_rays, kw)
+        lanes = rule if self.which == "rule" else 33 - rule
+        self.lanes[self.timed.calls % self.timed.n_phases] = lanes
+        return self.mk.megakernel(scene, params, n_rays, tile, _lanes=lanes,
+                                  **kw)
+
+    def __call__(self, *args, **kw):
+        return self.timed(*args, **kw)
+
+
+def route_turns(mk, n_phases: int, run: Callable, reps: int) -> dict:
+    """Each phase's K1 time on both routes in turns (the rule's route, the
+    other, the other, the rule's): ``run(kernel)`` renders (or steps) once
+    with ``kernel`` running K1, ``reps`` times a turn.  Returns per phase
+    the rule's lanes per ray, the mean ms of the rule's route, the other's,
+    the thread-per-ray and warp-per-ray routes', and the totals."""
+    turns = {w: RouteTimed(mk, n_phases, w) for w in ("rule", "other")}
+    for which in ("rule", "other", "other", "rule"):
+        for _ in range(reps):
+            run(turns[which])
+    rule_ms = turns["rule"].timed.phase_ms()
+    other_ms = turns["other"].timed.phase_ms()
+    lanes = turns["rule"].lanes
+    by = {1: [r if l == 1 else o for l, r, o in zip(lanes, rule_ms, other_ms)],
+          32: [r if l == 32 else o for l, r, o in zip(lanes, rule_ms,
+                                                      other_ms)]}
+    return dict(rule_lanes=lanes, rule_phase_ms=rule_ms,
+                other_phase_ms=other_ms, thread_phase_ms=by[1],
+                warp_phase_ms=by[32], rule_ms=sum(rule_ms),
+                thread_ms=sum(by[1]), warp_ms=sum(by[32]),
+                best_ms=sum(min(a, b) for a, b in zip(by[1], by[32])))
 
 
 # ---------------------------------------------------------------------------
@@ -529,7 +598,8 @@ def phase_kernel_vs_plain(port) -> dict:
                 raise SmokeError(f"{name}: multi-phase {key} "
                                  f"{two_stats[key]} != {one_stats[key]}")
         log(f"[kernel=plain] {name} {size}x{size}: {chk.checks} bit-equal "
-            f"comparisons (K1a scanline+block d1/d{DEPTH}, K1b schedule "
+            f"comparisons, launches by lanes per ray {chk.route_checks} "
+            f"(K1a scanline+block d1/d{DEPTH}, K1b schedule "
             f"{schedule} prefixes {prefix}, K1c counters {two_stats['slot_tests']}"
             f" slot tests)")
         checkers[name] = chk
@@ -573,7 +643,8 @@ def phase_scene_scale_vs_plain(port) -> dict:
                     raise SmokeError(f"{name}: multi-phase {key} "
                                      f"{stats[key]} != {one_stats[key]}")
         log(f"[kernel=plain] {name} {size}x{size} C={ps.n_clusters} "
-            f"CB={ps.aabbT.shape[0]}: {chk.checks} bit-equal comparisons "
+            f"CB={ps.aabbT.shape[0]}: {chk.checks} bit-equal comparisons, "
+            f"launches by lanes per ray {chk.route_checks} "
             f"(K1e scanline+block d1, culled = unculled at d1, d{cell.depth}"
             f" config {cell.config}; counters {stats['slot_tests']} slot "
             f"tests, {stats['cull_rows']} cull rows) in "
@@ -676,7 +747,8 @@ def phase_diff_kernels_vs_plain(port) -> dict:
             if rel > 1e-3:
                 raise SmokeError(f"{name}: segmented gradient differs from "
                                  f"the whole-path one by {rel} of its max")
-        log(f"[kernel=plain] {name} {size}x{size}: K1d {k1.checks} and K2 "
+        log(f"[kernel=plain] {name} {size}x{size}: K1d {k1.checks} (launches "
+            f"by lanes per ray {k1.route_checks}) and K2 "
             f"{k2.checks} comparisons (records and pay bit-equal, per-ray "
             f"cotangents and carries bit-equal, slot tables within "
             f"{k2.table_err_share:.3f} of their bound; schedule {schedule} "
@@ -748,17 +820,33 @@ def _device_profile(fn) -> dict | None:
                 gaps_next_to_k1_ms=k1_gap_ms)
 
 
-def _k1_bound(stats: dict, n_phases: int, n_rays: int, table_bytes: int,
+def _k1_ops(stats: dict, ps, hits: int, mirrors: int = 0,
+            far_root: bool = True) -> float:
+    """K1's lane operations for its counted work on layout ``ps``: the
+    slot tests at the launch's search, every AABB row, the occlusion gate
+    once a visit where the layout's launches gate, every bounce at what one
+    to the sky costs and ``hits`` of them, ``mirrors`` of those, at what
+    they cost more (csrc/megakernel.cu's header)."""
+    from raytracers_tpu_torch.render import megakernel as mk
+    visits = (stats["slot_tests"] / ps.cluster_width
+              if mk._kernel_flags(ps).occl else 0)
+    return (stats["slot_tests"] * (OPS_PER_SLOT if far_root
+                                   else OPS_PER_SLOT_NEAR)
+            + stats["cull_rows"] * OPS_PER_CULL_ROW + visits * OPS_PER_GATE
+            + stats["ray_bounces"] * OPS_PER_BOUNCE + hits * OPS_PER_HIT
+            + mirrors * OPS_PER_MIRROR)
+
+
+def _k1_bound(stats: dict, ps, n_phases: int, n_rays: int,
               far_root: bool = True):
     """Least time K1 could take for one render's counted work: operations
     over the FP32 lane-op rate, or the bytes over HBM (the ray state each
     phase must read and write, the scene's tables read once), whichever is
-    larger.  A slot test costs what the launch's search costs."""
-    ops = (stats["slot_tests"] * (OPS_PER_SLOT if far_root
-                                  else OPS_PER_SLOT_NEAR)
-           + stats["cull_rows"] * OPS_PER_CULL_ROW
-           + stats["ray_bounces"] * OPS_PER_BOUNCE)
-    nbytes = STATE_BYTES * n_rays * (2 * n_phases - 1) + table_bytes
+    larger.  A slot test costs what the launch's search costs; a ray ends on
+    the sky at most once, so at least the bounces less the rays hit."""
+    hits = max(stats["ray_bounces"] - n_rays, 0)
+    ops = _k1_ops(stats, ps, hits, far_root=far_root)
+    nbytes = STATE_BYTES * n_rays * (2 * n_phases - 1) + _table_bytes(ps)
     ops_ms = ops / FP32_LANE_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
@@ -791,6 +879,66 @@ class WarpWork:
         return self.slots / max(self.warp_slots, 1)
 
 
+def _log_routes(what: str, turns: dict) -> None:
+    """One ``[routes]`` line: each phase's K1 ms on both routes and the
+    route the rule chose, then the totals."""
+    phases = ", ".join(
+        f"{k}: thread {t:.4f} warp {w:.4f} rule {l}"
+        for k, (t, w, l) in enumerate(zip(turns["thread_phase_ms"],
+                                          turns["warp_phase_ms"],
+                                          turns["rule_lanes"])))
+    log(f"[routes] {what}: {phases}; K1 ms rule {turns['rule_ms']:.4f}, "
+        f"all thread {turns['thread_ms']:.4f}, all warp "
+        f"{turns['warp_ms']:.4f}, faster route each launch "
+        f"{turns['best_ms']:.4f}")
+
+
+def _counted(mk, fn):
+    """``fn()`` with K1's launch counts set to 0 just before and read just
+    after: its result, the launches and the launches by lanes per ray."""
+    import torch
+    mk.megakernel.launches = 0
+    for lanes in mk.megakernel.route_launches:
+        mk.megakernel.route_launches[lanes] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, mk.megakernel.launches, dict(mk.megakernel.route_launches)
+
+
+def _check_routes(what: str, routes: dict, rule_lanes) -> None:
+    """The main path's launches by route must be those the rule gives."""
+    want = {lanes: 0 for lanes in routes}
+    for lanes in rule_lanes:
+        want[lanes] += 1
+    if routes != want:
+        raise SmokeError(f"{what}: K1 launches by lanes per ray {routes}, "
+                         f"the rule gives {want}")
+
+
+def _dead_launch_ms(mk, ps, cell) -> dict:
+    """What a continuation whose rays are all dead costs on each route: one
+    launch over the cell's padded rays with every ray inactive, timed with
+    CUDA events; its outputs are the inputs copied through."""
+    import torch
+    from raytracers_tpu_torch.utils.timing import cuda_ms
+    tile, block = cell.config[:2]
+    ro = mk._ray_order(cell.cam, cell.size, cell.size, tile, block, 0.0,
+                       None, cell.depth)
+    st = torch.zeros(mk.N_STATE, ro.n_rays, device=ro.params.device)
+    out = {}
+    for lanes in mk.LANES:
+        def launch(lanes=lanes):
+            return mk.megakernel(ps, ro.params, ro.n_rays, tile, state_in=st,
+                                 emit_state=True, with_stats=True,
+                                 _lanes=lanes)
+        got, stats = launch()
+        if not torch.equal(got, st) or stats.any():
+            raise SmokeError(f"{cell.name}: an all-dead continuation on "
+                             f"{lanes} lanes per ray changed its rays")
+        out[lanes] = cuda_ms(launch, warmup=1, runs=REPEATS)
+    return out
+
+
 def phase_main_path(port, name: str, checker) -> dict:
     import torch
     from raytracers_tpu_torch.render import megakernel as mk
@@ -807,10 +955,7 @@ def phase_main_path(port, name: str, checker) -> dict:
 
     cell.render()                                               # warm-up
     torch.cuda.synchronize()
-    mk.megakernel.launches = 0
-    img = cell.render()
-    torch.cuda.synchronize()
-    launches = mk.megakernel.launches
+    img, launches, routes = _counted(mk, cell.render)
     if launches != n_phases:
         raise SmokeError(f"{name}: the main path launched K1 {launches} "
                          f"times, not {n_phases}")
@@ -822,11 +967,13 @@ def phase_main_path(port, name: str, checker) -> dict:
                  for _ in range(3)]
     mean_ms = sum(render_ms) / len(render_ms)
 
-    timed = Timed(mk.megakernel, n_phases)
-    for _ in range(REPEATS):
-        _render_with(cell, timed)
-    k1_phase_ms = timed.phase_ms()
-    k1_ms = sum(k1_phase_ms)
+    turns = route_turns(mk, n_phases, lambda k: _render_with(cell, k),
+                        ROUTE_REPS)
+    _check_routes(name, routes, turns["rule_lanes"])
+    _log_routes(f"{name} render", turns)
+    k1_phase_ms = turns["rule_phase_ms"]
+    k1_ms = turns["rule_ms"]
+    dead = _dead_launch_ms(mk, ps, cell) if cell.multi_phase else None
 
     profiled = _device_profile(cell.render)
     if profiled is None:
@@ -835,8 +982,7 @@ def phase_main_path(port, name: str, checker) -> dict:
     # the counters of the same render (render_stats for the API cells)
     warps = WarpWork(mk)
     _, stats = _render_with(cell, warps, with_stats=True)
-    bound_ms, bound_by = _k1_bound(stats, n_phases, cell.n_rays,
-                                   _table_bytes(ps))
+    bound_ms, bound_by = _k1_bound(stats, ps, n_phases, cell.n_rays)
 
     plain = Timed(mk.megakernel_reference, n_phases)
     torch.cuda.synchronize()
@@ -849,9 +995,17 @@ def phase_main_path(port, name: str, checker) -> dict:
                     img.reshape(-1), plain_img.reshape(-1))
     # a soup's rays fill the card's resident warps only in part: the same
     # render at twice the side (4x the rays) shows how far its time is set
-    # by the rays in flight rather than by their work
-    ms_2x = (cuda_ms(_cell(port, name, size=2 * size).render, warmup=1,
-                     runs=3) if name in SOUPS else None)
+    # by the rays in flight rather than by their work, and its one launch
+    # on both routes places the rule's threshold (WARP_BELOW_RAYS) between
+    # measured launches
+    ms_2x = turns_2x = None
+    if name in SOUPS:
+        cell_2x = _cell(port, name, size=2 * size)
+        ms_2x = cuda_ms(cell_2x.render, warmup=1, runs=3)
+        turns_2x = route_turns(mk, 1, lambda k: _render_with(cell_2x, k),
+                               ROUTE_REPS)
+        _log_routes(f"{name} render at {2 * size}x{2 * size} "
+                    f"({cell_2x.n_rays} rays)", turns_2x)
 
     res = dict(scene=name, size=size, depth=cell.depth,
                clusters=ps.n_clusters, cull_blocks=ps.aabbT.shape[0],
@@ -859,17 +1013,20 @@ def phase_main_path(port, name: str, checker) -> dict:
                sort_prefix=prefix, prepare_ms=prep_ms, render_ms=render_ms,
                render_ms_mean=mean_ms,
                mrays_per_s=size * size / mean_ms / 1e3,
-               k1_launches=launches, k1_phase_ms=k1_phase_ms, k1_ms=k1_ms,
+               k1_launches=launches, k1_route_launches=routes,
+               k1_phase_ms=k1_phase_ms, k1_ms=k1_ms,
+               k1_routes=turns, all_dead_continuation_ms=dead,
                sort_and_glue_ms=mean_ms - k1_ms,
                slot_tests=stats["slot_tests"],
                ray_bounces=stats["ray_bounces"],
                cull_rows=stats["cull_rows"],
                phase_slot_tests=stats.get("phase_slot_tests"),
-               warp_lane_share_bound=warps.share(),
+               thread_route_warp_lane_share_bound=warps.share(),
                k1_bound_ms=bound_ms, k1_bound_by=bound_by,
                k1_bound_share=bound_ms / k1_ms,
                plain_k1_ms=plain_ms, plain_render_ms=plain_render_ms,
-               render_ms_twice_the_side=ms_2x, profile=profiled)
+               render_ms_twice_the_side=ms_2x,
+               k1_routes_twice_the_side=turns_2x, profile=profiled)
     log(f"[main] {json.dumps(res)}")
     return res
 
@@ -888,6 +1045,7 @@ class Counted:
         self.launches.append(dict(self.mk._stats_dict(out[1]),
                                   depth=rec.shape[0],
                                   bounces=int((rec >= 0).sum()),
+                                  misses=int((rec == -1).sum()),
                                   ends=int(((rec == -1) | (rec == -3)).sum()),
                                   live=int((rec[0] != -2).sum())))
         return out
@@ -928,15 +1086,16 @@ class PlainK2:
         return exact.float(), ray, fwd
 
 
-def _k1d_bound(launches, n_rays: int):
-    """Least time of one step's K1d launches: K1's operation count from the
-    counters, or the bytes (ray state in and out of each phase, the records
-    and the pay at bounces) over HBM, whichever is larger."""
+def _k1d_bound(launches, ps, n_rays: int):
+    """Least time of one step's K1d launches on layout ``ps``: K1's
+    operation count from the counters, with the hits and mirror bounces the
+    records tell, or the bytes (ray state in and out of each phase, the
+    records and the pay at bounces) over HBM, whichever is larger."""
     stats = {k: sum(l[k] for l in launches)
-             for k in ("slot_tests", "cull_rows", "ray_bounces")}
-    ops = (stats["slot_tests"] * OPS_PER_SLOT
-           + stats["cull_rows"] * OPS_PER_CULL_ROW
-           + stats["ray_bounces"] * OPS_PER_BOUNCE)
+             for k in ("slot_tests", "cull_rows", "ray_bounces", "misses",
+                       "bounces")}
+    ops = _k1_ops(stats, ps, stats["ray_bounces"] - stats["misses"],
+                  mirrors=stats["bounces"])
     nbytes = (STATE_BYTES * n_rays * (2 * len(launches) - 1)
               + sum(4 * l["depth"] * n_rays + PAY_BYTES * l["bounces"]
                     for l in launches))
@@ -1018,10 +1177,9 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     step()                                                      # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mk.megakernel.launches = rb.replay_bwd.launches = 0
-    img, grads = step()
-    torch.cuda.synchronize()
-    launches = (mk.megakernel.launches, rb.replay_bwd.launches)
+    rb.replay_bwd.launches = 0
+    (img, grads), k1d_launches, routes = _counted(mk, step)
+    launches = (k1d_launches, rb.replay_bwd.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     if launches != (n_phases, n_phases):
         raise SmokeError(f"{name}: one fwd+bwd step launched K1d and K2 "
@@ -1037,13 +1195,13 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     fwdbwd_ms = [cuda_ms(step, warmup=0, runs=FB_REPEATS) for _ in range(3)]
     mean_ms = sum(fwdbwd_ms) / len(fwdbwd_ms)
 
-    t_k1d = Timed(mk.megakernel, n_phases)
     t_k2 = Timed(rb.replay_bwd, n_phases)
-    f_timed = make_render_pallas_diff(SIZE, SIZE, fwd_kernel=t_k1d,
-                                      bwd_kernel=t_k2, **cfg)
-    for _ in range(FB_REPEATS):
-        _grads(f_timed, spheres, cam)
-    k1d_ms, k2_ms = t_k1d.phase_ms(), t_k2.phase_ms()[::-1]    # by segment
+    turns = route_turns(mk, n_phases, lambda k: _grads(make_render_pallas_diff(
+        SIZE, SIZE, fwd_kernel=k, bwd_kernel=t_k2, **cfg), spheres, cam),
+        ROUTE_REPS)
+    _check_routes(f"{name} fwd+bwd", routes, turns["rule_lanes"])
+    _log_routes(f"{name} fwd+bwd K1d ({tag})", turns)
+    k1d_ms, k2_ms = turns["rule_phase_ms"], t_k2.phase_ms()[::-1]  # by segment
 
     profiled = _device_profile(step)
     if profiled is None:
@@ -1054,7 +1212,7 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
                                    bwd_kernel=captured, **cfg), spheres, cam)
     n_rays = (-(-SIZE // block[0]) * block[0]) * (-(-SIZE // block[1])
                                                   * block[1])
-    (k1d_bound, k1d_by), stats = _k1d_bound(counted.launches, n_rays)
+    (k1d_bound, k1d_by), stats = _k1d_bound(counted.launches, ps, n_rays)
     (k2_bound, k2_by), k2_scratch_ms = _k2_bound(counted.launches, n_rays,
                                                  n_slots)
     library_ms = _index_add_ms(captured, n_slots)
@@ -1108,6 +1266,7 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
                schedule=schedule, sort_prefix=prefix,
                fwdbwd_ms=fwdbwd_ms, fwdbwd_ms_mean=mean_ms,
                k1d_launches=launches[0], k2_launches=launches[1],
+               k1d_route_launches=routes, k1d_routes=turns,
                k1d_phase_ms=k1d_ms, k2_segment_ms=k2_ms,
                k1d_ms=sum(k1d_ms), k2_ms=sum(k2_ms),
                glue_ms=mean_ms - sum(k1d_ms) - sum(k2_ms),
@@ -1499,23 +1658,19 @@ def _k1f_cell(port, default: Cell, mode: str, checker, default_img) -> dict:
 
     render()                                                    # warm-up
     torch.cuda.synchronize()
-    mk.megakernel.launches = 0
-    img = render()
-    torch.cuda.synchronize()
-    launches = mk.megakernel.launches
+    img, launches, routes = _counted(mk, render)
     if launches != n_phases:
         raise SmokeError(f"{name} {mode}: the render launched K1 {launches} "
                          f"times, not {n_phases}")
     render_ms = [cuda_ms(render, warmup=0, runs=REPEATS) for _ in range(3)]
     mean_ms = sum(render_ms) / len(render_ms)
-    timed = Timed(mk.megakernel, n_phases)
-    for _ in range(REPEATS):
-        render(timed)
-    k1_phase_ms = timed.phase_ms()
-    k1_ms = sum(k1_phase_ms)
+    turns = route_turns(mk, n_phases, render, ROUTE_REPS)
+    _check_routes(f"{name} {mode}", routes, turns["rule_lanes"])
+    _log_routes(f"{name} {mode}", turns)
+    k1_phase_ms = turns["rule_phase_ms"]
+    k1_ms = turns["rule_ms"]
     _, stats = render(with_stats=True)
-    bound_ms, bound_by = _k1_bound(stats, n_phases, default.n_rays,
-                                   _table_bytes(ps),
+    bound_ms, bound_by = _k1_bound(stats, ps, n_phases, default.n_rays,
                                    opts.get("far_root", True))
     plain = Timed(mk.megakernel_reference, n_phases)
     plain_img = render(plain)
@@ -1533,7 +1688,8 @@ def _k1f_cell(port, default: Cell, mode: str, checker, default_img) -> dict:
                block=block, schedule=schedule, sort_prefix=prefix,
                render_ms=render_ms, render_ms_mean=mean_ms,
                mrays_per_s=SIZE * SIZE / mean_ms / 1e3,
-               k1_launches=launches, k1_phase_ms=k1_phase_ms, k1_ms=k1_ms,
+               k1_launches=launches, k1_route_launches=routes,
+               k1_phase_ms=k1_phase_ms, k1_ms=k1_ms, k1_routes=turns,
                sort_and_glue_ms=mean_ms - k1_ms,
                slot_tests=stats["slot_tests"],
                ray_bounces=stats["ray_bounces"],
@@ -1782,6 +1938,7 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             replaces=("raytracers_tpu/render/pallas_kernel.py:"
                       + ("526" if k1e else "319")),
             launches=r["k1_launches"],
+            lanes_per_ray=r["k1_routes"]["rule_lanes"],
             max_abs_err=checkers[r["scene"]].max_abs_err,
             ms=r["k1_ms"], plain_ms=r["plain_k1_ms"],
             bound_ms=r["k1_bound_ms"], bound_by=r["k1_bound_by"],
@@ -1792,7 +1949,9 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             name=f"K1d megakernel record ({r['scene']} fwd+bwd {where})",
             route="cuda", source=src["megakernel"],
             replaces="raytracers_tpu/render/pallas_kernel.py:934",
-            launches=r["k1d_launches"], max_abs_err=k1.max_abs_err,
+            launches=r["k1d_launches"],
+            lanes_per_ray=r["k1d_routes"]["rule_lanes"],
+            max_abs_err=k1.max_abs_err,
             ms=r["k1d_ms"], plain_ms=r["plain_k1d_ms"],
             bound_ms=r["k1d_bound_ms"], bound_by=r["k1d_bound_by"],
             library_ms=None))
@@ -1825,6 +1984,7 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             replaces=("raytracers_tpu/render/pallas_kernel.py:"
                       + K1F_CELLS[mode][2]),
             launches=c["k1_launches"],
+            lanes_per_ray=c["k1_routes"]["rule_lanes"],
             max_abs_err=k1f_checkers[key, scene].max_abs_err,
             ms=c["k1_ms"], plain_ms=c["plain_k1_ms"],
             bound_ms=c["k1_bound_ms"], bound_by=c["k1_bound_by"],
@@ -1837,7 +1997,9 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             name=f"K1f W=64 K1d megakernel record ({scene} fwd+bwd {where})",
             route="cuda", source=src["megakernel"],
             replaces="raytracers_tpu/render/pallas_kernel.py:634",
-            launches=r["k1d_launches"], max_abs_err=k1.max_abs_err,
+            launches=r["k1d_launches"],
+            lanes_per_ray=r["k1d_routes"]["rule_lanes"],
+            max_abs_err=k1.max_abs_err,
             ms=r["k1d_ms"], plain_ms=r["plain_k1d_ms"],
             bound_ms=r["k1d_bound_ms"], bound_by=r["k1d_bound_by"],
             library_ms=None))

@@ -33,8 +33,8 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 # kernel -> (source, launch function, its ctypes argument types)
 KERNELS = {
     "megakernel": ("megakernel.cu", "rt_megakernel_launch",
-                   [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p,
-                    _p, _p, _p, _p, _p, _i, _i, _i, _i, _p]),
+                   [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                    _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _p]),
     "replay_bwd": ("replay_bwd.cu", "rt_replay_bwd_launch",
                    [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                     _p]),

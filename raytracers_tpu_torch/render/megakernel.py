@@ -7,9 +7,10 @@ Counterpart of ``raytracers_tpu.render.pallas_kernel`` (the TPU kernel
   JAX package does (same tables, bit for bit), so the two packages render
   from the same data and the layout tests can hold them equal;
 * ``megakernel`` is the wrapper of the hand-written CUDA kernel
-  (``csrc/megakernel.cu``), one thread per ray; on a CPU tensor it takes
-  ``megakernel_reference``, the plain torch version with the same per-ray
-  arithmetic;
+  (``csrc/megakernel.cu``), which runs a ray on one thread or on one warp,
+  the route that ``lanes_per_ray`` picks for the launch; on a CPU tensor it
+  takes ``megakernel_reference``, the plain torch version with the same
+  per-ray arithmetic;
 * ``render_pallas`` (one launch) and ``render_pallas_twophase`` (phases with
   survivor-compaction sorts between them, then an unpermute sort) drive it;
 * ``render_pallas_record`` and ``render_pallas_record_twophase`` drive its
@@ -74,6 +75,7 @@ _KRUN_INIT = _HIT_TH | (LANE - 1)
 N_STATE = 13   # ox oy oz dx dy dz lr lg lb rr rg rb active
 N_STATS = 3    # sphere rows tested, bounces run, AABB slab rows tested
 MAX_BLOCKS = 2048   # block unions the kernel holds in shared memory (48 KB)
+LANES = (1, 32)     # lanes per ray of the kernel's two routes
 
 
 class PallasScene(NamedTuple):
@@ -298,6 +300,39 @@ def _check_lane_groups(lane_groups) -> None:
                          ">= 1") from None
     if ng < 1:
         raise ValueError(f"lane_groups {ng} must be >= 1")
+
+
+def _check_lanes(lanes) -> None:
+    """``_lanes`` must be None (the route rule decides) or 1 or 32."""
+    if lanes is None:
+        return
+    if isinstance(lanes, bool) or not isinstance(lanes, int) \
+            or lanes not in LANES:
+        raise ValueError(f"_lanes {lanes!r}: the kernel runs {LANES} lanes "
+                         "per ray, or None for the route rule")
+
+
+WARP_BELOW_RAYS = 2 ** 19   # generated launches this small take a warp per ray
+
+
+def lanes_per_ray(n_rays: int, continuation: bool) -> int:
+    """The route rule: the lanes per ray of a K1 launch of ``n_rays`` rays,
+    generated or continuing from a state (``state_in`` given), from what the
+    wrapper knows without reading the device.
+
+    A warp per ray (32) for a continuation, whose survivors include the few
+    rays that run long mirror chains while the rest are dead, and for fewer
+    than ``WARP_BELOW_RAYS`` generated rays, which leave most of the card's
+    lanes idle on a thread each (the 1M soup's 256x256 render: 65,536
+    rays); a thread per ray (1) for the about one million generated rays of
+    a 1000x1000 render, alike enough to fill the card.  The threshold lies
+    between the largest generated launch measured faster on a warp per ray
+    (the soup's 512x512 render, 262,144 rays) and the smallest measured
+    faster on a thread (about 1M rays): any value between them routes every
+    measured launch alike.  On the card (PERF.md §5) each launch of the main
+    path runs on its faster route under this rule, or within the spread of
+    two calls where the routes tie (irreg's K1d phase 0)."""
+    return 32 if continuation or n_rays < WARP_BELOW_RAYS else 1
 
 
 # ---------------------------------------------------------------------------
@@ -561,7 +596,8 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
                emit_state: bool = False, with_stats: bool = False,
                record_depth: int | None = None, record_pay: bool = False,
                cull: bool | None = None, far_root: bool = True,
-               force_occl: bool = False, lane_groups: int | None = None):
+               force_occl: bool = False, lane_groups: int | None = None,
+               _lanes: int | None = None):
     """K1: trace ``n_rays`` rays until they die or reach the depth cap
     ``params[13]``, over the layout's clusters of 32, 64 or 128 spheres.
 
@@ -593,11 +629,18 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
     998-1015); K2 reads pay only at bounces, so the kernel writes nothing
     there.  Without ``record_pay`` it is None.
 
+    The kernel runs each ray on one thread or on one warp (32 lanes): both
+    routes compute the same function bit for bit.  ``lanes_per_ray`` picks
+    the route; ``_lanes`` (1 or 32, for tests and measurements only)
+    overrides it.
+
     A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
     kernel on the current stream, without synchronising, and counts the
-    launch in ``megakernel.launches``."""
+    launch in ``megakernel.launches`` and in ``megakernel.route_launches``
+    under its lanes per ray."""
     _check_launch(scene, params, n_rays, tile, block_tiled, state_in,
                   record_depth, record_pay, lane_groups)
+    _check_lanes(_lanes)
     if params.device.type == "cpu":
         return megakernel_reference(
             scene, params, n_rays, tile, block_tiled=block_tiled,
@@ -624,19 +667,24 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
         if record_pay:
             pay = torch.empty(record_depth, 8, n_rays, dtype=torch.float32,
                               device=dev)
+    lanes = _lanes or lanes_per_ray(n_rays, state_in is not None)
+    # the warp-per-ray continuation's ray counter (the kernel zeroes it)
+    work = (torch.empty(1, dtype=torch.int32, device=dev)
+            if lanes > 1 and state_in is not None else None)
 
     rc = fn(_ptr(params), _ptr(scene.sphT), _ptr(scene.aabbT),
             _ptr(scene.superT), scene.n_clusters, CB, CR, flags.tail_rows,
             int(flags.cull), int(flags.occl), int(flags.two_level),
-            scene.cluster_width, int(bool(far_root)),
+            scene.cluster_width, int(bool(far_root)), lanes,
             _ptr(state_in), _ptr(state_out), _ptr(packed), _ptr(stats),
-            _ptr(rec), _ptr(pay), record_depth or 0,
+            _ptr(rec), _ptr(pay), _ptr(work), record_depth or 0,
             n_rays, tile, int(block_tiled),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError("megakernel launch failed: "
                            + _cuda.error_string("megakernel", rc))
     megakernel.launches += 1
+    megakernel.route_launches[lanes] += 1
     out = state_out if emit_state else packed
     if record_depth is not None:
         return out, stats, rec, pay
@@ -648,6 +696,7 @@ def _ptr(t):
 
 
 megakernel.launches = 0
+megakernel.route_launches = {k: 0 for k in LANES}
 
 
 # ---------------------------------------------------------------------------
