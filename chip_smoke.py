@@ -58,17 +58,23 @@ a failed phase exits non-zero before the final line:
    field for field equal to the CPU build (rgbbox, irreg and plane at leaf
    8, the 1M-sphere soup of ``bench.py`` at leaf 128 and 8),
    ``validate_bvh`` clean on rgbbox and irreg; K3 (``render_traversal``)
-   bit-equal to its plain version at 200x200, both scenes, scanline and
-   block, depth 1 and 50; K3 and ``render(mode="bvh")`` against the goldens
-   (depth 1 bit-exact, depth 50 within their tolerances);
+   bit-equal to its plain version at 200x200, both scenes (the shared-
+   memory path) and the 14,400-sphere soup (C = 128, K = 113: the global-
+   memory path), far root on and off, scanline and block, depth 1 and 50;
+   K3 and ``render(mode="bvh")`` against the goldens (depth 1 bit-exact,
+   depth 50 within their tolerances);
 8. main path, BVH (``[bvh]`` lines): the 1M-sphere ``build_bvh`` at leaf
    128 and 8 (CUDA events, one warm-up, 3 runs); ``prepare_scene`` with
    the tree and ``render(mode="bvh")`` for rgbbox and irreg at 1000x1000,
    depth 50 (one warm-up, 2 timed renders); K3 for
-   both scenes at 1000x1000, depth 50, default tile and blocks: launches
-   counted from zero around one render, 3 rounds of 5 renders, the kernel's
-   time by CUDA events, the plain version's time and counters on the card,
-   the bound, and the image bit-equal to the plain version's;
+   both scenes and the 14,400-sphere soup at 1000x1000, depth 50, default
+   tile and blocks: launches counted from zero around one render, 3 rounds
+   of 5 renders, the kernel's time by CUDA events, its warp rounds by kind
+   (tree steps, serial and split leaf rounds and their leaves, shadings),
+   the plain version's time and counters on the card, the bound, the
+   thread-per-ray schedule's warp-lane share (Σ work over Σ over warps of
+   32 × the busiest lane's, from the per-ray counters), and the image
+   bit-equal to the plain version's;
 9. K1f (``[k1f]`` lines): at 200x200, K1 at cluster widths 64 and 32 (irreg
    then takes the two-level cull) and near root only (``far_root=False``),
    scanline and block, depth 1 and 50, and the class schedule; the forced
@@ -146,6 +152,9 @@ SOUP20K_CHECK_SIZE, SOUP20K_DEPTH = 128, 16
 # random sphere soups: (spheres, seed, extent, camera distance); the camera
 # looks at the origin, fov 60.  soup1m is bench.py:184-194's render.
 SOUPS = {"soup20k": (20_000, 5, 200.0, 260.0),
+         # K3's global-memory path: at the default leaf size (C = 128,
+         # K = 113) the geometry does not fit a block's shared memory
+         "soup14k": (14_400, 5, 200.0, 260.0),
          "soup1m": (1_000_000, 11, 400.0, 520.0)}
 # render cells of the main path: name -> (image side, depth)
 CELLS = {"rgbbox": (SIZE, DEPTH), "irreg": (SIZE, DEPTH),
@@ -207,6 +216,7 @@ K3_OPS = dict(node_steps=_ops(39), slot_tests=_ops(21),
               sky_bounces=_ops(22, sqrt=1, div=5), rays=_ops(27))
 # the BVH build's soup (bench.py:249-267) and its leaf sizes
 BVH_SOUP, BVH_LEAVES = (1_000_000, 0), (128, 8)
+K3_GLOBAL = "soup14k"           # K3's scene on the global-memory path
 
 GOLDENS = (("rgbbox", 1, "rgbbox_200_d1.ppm", 0.0, 0.0),
            ("rgbbox", DEPTH, "rgbbox_200.ppm", 0.15, 6.0),
@@ -1293,15 +1303,20 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
 
 class CheckedK3:
     """K3 with each launch repeated by its plain version on the same inputs
-    on the card; any bit of difference fails the phase."""
+    on the card; any bit of difference fails the phase.  ``paths`` counts
+    the launches by the wrapper's path (shared or global geometry)."""
 
     def __init__(self, tr, label: str):
         self.tr, self.label = tr, label
         self.checks = 0
         self.max_abs_err = 0.0
+        self.paths = {"shared": 0, "global": 0}
 
     def __call__(self, scene, params, n_rays, tile, **kw):
+        before = dict(self.tr.traversal_kernel.path_launches)
         out = self.tr.traversal_kernel(scene, params, n_rays, tile, **kw)
+        for path, n in self.tr.traversal_kernel.path_launches.items():
+            self.paths[path] += n - before[path]
         ref, _ = self.tr.traversal_kernel_reference(scene, params, n_rays,
                                                     tile, **kw)
         self.max_abs_err = max(self.max_abs_err, _abs_err(out, ref, True))
@@ -1320,13 +1335,17 @@ def _bvh_fields(bvh) -> dict:
 
 
 def _traversal_cell(port, name: str):
-    """A scene's K3 tables on the card (default leaf size), C, K and the
-    camera."""
+    """A scene's (or a soup's) K3 tables on the card (default leaf size),
+    C, K and the camera."""
     from raytracers_tpu_torch.geometry import camera
     from raytracers_tpu_torch.render import traversal as tr
-    sc = port.scenes.by_name(name)
-    scene, C, K = tr.build_traversal_scene(sc.spheres)
-    cam = camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov, 1.0)
+    if name in SOUPS:
+        sph, cam = _soup(name)
+    else:
+        sc = port.scenes.by_name(name)
+        sph = sc.spheres
+        cam = camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov, 1.0)
+    scene, C, K = tr.build_traversal_scene(sph)
     return scene, C, K, cam
 
 
@@ -1364,21 +1383,32 @@ def phase_bvh_vs_plain(port) -> dict:
 
     size = CHECK_SIZE
     checkers = {}
-    for name in SCENES:
+    for name in (*SCENES, K3_GLOBAL):
         scene, C, K, cam = _traversal_cell(port, name)
         chk = CheckedK3(tr, f"{name} {size}x{size}")
+        path = "shared" if tr.geometry_in_shared(C, K) else "global"
+        if (path == "global") != (name == K3_GLOBAL):
+            raise SmokeError(f"{name}: C={C} K={K} takes K3's {path} path")
         imgs = {}
-        for depth in (1, DEPTH):
-            for block in (None, (32, 16)):
-                imgs[depth, block] = tr.render_traversal(
-                    scene, C, K, cam, size, size, max_depth=depth,
-                    block=block, kernel=chk)
-        if not torch.equal(imgs[1, None], imgs[1, (32, 16)]):
+        for far_root in (True, False):
+            for depth in (1, DEPTH):
+                for block in (None, (32, 16)):
+                    imgs[far_root, depth, block] = tr.render_traversal(
+                        scene, C, K, cam, size, size, max_depth=depth,
+                        block=block, far_root=far_root, kernel=chk)
+        if not torch.equal(imgs[True, 1, None], imgs[True, 1, (32, 16)]):
             raise SmokeError(f"{name}: K3 block-tiled image differs from "
                              "the scanline one at depth 1")
+        if chk.paths[path] != chk.checks:
+            raise SmokeError(f"{name}: K3 launches by path {chk.paths}, "
+                             f"all {chk.checks} should be {path}")
         log(f"[kernel=plain] {name} {size}x{size} C={C} K={K}: K3 "
-            f"{chk.checks} bit-equal comparisons (scanline+block d1/d{DEPTH})")
+            f"{chk.checks} bit-equal comparisons on the {path} path "
+            f"(far root on and off, scanline+block, d1/d{DEPTH})")
         checkers[name] = chk
+        if name == K3_GLOBAL:
+            continue
+        imgs = {key[1:]: img for key, img in imgs.items() if key[0]}
         goldens = [g for g in GOLDENS if g[0] == name]
         prep = prepare_scene(port.scenes.by_name(name), size, size)
         for _, depth, fname, max_mis, max_delta in goldens:
@@ -1404,14 +1434,29 @@ def _k3_bound(stats: dict, table_bytes: int):
                                                               "bytes")
 
 
+def _k3_work(per_ray):
+    """Each ray's lane operations by K3_OPS, from the plain version's
+    per-ray counters (len(STATS), n)."""
+    from raytracers_tpu_torch.render.traversal import STATS
+    n = dict(zip(STATS, per_ray.double()))
+    return (n["node_steps"] * K3_OPS["node_steps"]
+            + n["slot_tests"] * K3_OPS["slot_tests"]
+            + n["slot_roots"] * K3_OPS["slot_roots"]
+            + n["far_roots"] * K3_OPS["far_roots"]
+            + (n["ray_bounces"] - n["sky_bounces"]) * K3_OPS["hit_bounces"]
+            + n["sky_bounces"] * K3_OPS["sky_bounces"] + K3_OPS["rays"])
+
+
 def phase_bvh_main(port, checkers) -> list:
     """The BVH main path: the 1M-sphere build, ``render(mode="bvh")`` and
-    K3 at SIZE, depth DEPTH, each result logged as a ``[bvh]`` line.
-    Returns K3's results."""
+    K3 at SIZE, depth DEPTH, each result logged as a ``[bvh]`` line (K3
+    also on the soup of its global-memory path).  Returns K3's results."""
     import torch
     from raytracers_tpu_torch.bvh.lbvh import build_bvh
     from raytracers_tpu_torch.render import megakernel as mk
     from raytracers_tpu_torch.render import traversal as tr
+    from raytracers_tpu_torch.render.megakernel import _ray_order, _to_image
+    from raytracers_tpu_torch.render.traversal_model import thread_warp_share
     from raytracers_tpu_torch.render.api import prepare_scene, render
     from raytracers_tpu_torch.utils.timing import cuda_ms
     soup = port.scenes.random_spheres(BVH_SOUP[0], seed=BVH_SOUP[1])
@@ -1456,7 +1501,7 @@ def phase_bvh_main(port, checkers) -> list:
         log(f"[bvh] {json.dumps(res)}")
 
     k3 = []
-    for name in SCENES:
+    for name in (*SCENES, K3_GLOBAL):
         scene, C, K, cam = _traversal_cell(port, name)
         call = lambda: tr.render_traversal(scene, C, K, cam, SIZE,  # noqa
                                            SIZE, max_depth=DEPTH)
@@ -1476,12 +1521,29 @@ def phase_bvh_main(port, checkers) -> list:
             tr.render_traversal(scene, C, K, cam, SIZE, SIZE,
                                 max_depth=DEPTH, kernel=timed)
         k3_ms = timed.phase_ms()[0]
+        # the kernel's warp rounds, in one more render
+        counters = torch.zeros(len(tr.COUNTERS), dtype=torch.int64,
+                               device="cuda")
+        tr.render_traversal(
+            scene, C, K, cam, SIZE, SIZE, max_depth=DEPTH,
+            kernel=lambda *a, **kw: tr.traversal_kernel(
+                *a, counters=counters, **kw))
+        rounds = dict(zip(tr.COUNTERS, counters.tolist()))
+        # the plain version, as traversal_reference runs it, with the
+        # per-ray counters
+        ro = _ray_order(cam, SIZE, SIZE, tr.DEFAULT_TILE, (32, 16), 0.0,
+                        None, DEPTH)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain_img, stats = tr.traversal_reference(
-            scene, C, K, cam, SIZE, SIZE, max_depth=DEPTH, with_stats=True)
+        packed, per_ray = tr.traversal_kernel_reference(
+            scene, ro.params, ro.n_rays, tr.DEFAULT_TILE, n_clusters=C,
+            leaf_size=K, max_depth=DEPTH, block_tiled=True)
+        plain_img = _to_image(ro, packed, SIZE, SIZE)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        stats = dict(zip(tr.STATS, per_ray.sum(dim=1,
+                                               dtype=torch.int64).tolist()),
+                     rays=ro.n_rays)
         checkers[name].max_abs_err = max(
             checkers[name].max_abs_err,
             _abs_err(img.reshape(-1), plain_img.reshape(-1), True))
@@ -1494,13 +1556,21 @@ def phase_bvh_main(port, checkers) -> list:
                                     scene.spheres))
         bound_ms, bound_by = _k3_bound(stats, table_bytes)
         mean_ms = sum(render_ms) / len(render_ms)
+        leaf_rounds = rounds["serial_rounds"] + rounds["split_rounds"]
         res = dict(what="K3 render_traversal", scene=name, size=SIZE,
                    depth=DEPTH, clusters=C, leaf_size=K, tile=512,
                    block=(32, 16), k3_launches=launches,
+                   path=("shared" if tr.geometry_in_shared(C, K)
+                         else "global"),
                    render_ms=render_ms, render_ms_mean=mean_ms,
                    mrays_per_s=SIZE * SIZE / mean_ms / 1e3, k3_ms=k3_ms,
                    **stats, k3_bound_ms=bound_ms, k3_bound_by=bound_by,
-                   k3_bound_share=bound_ms / k3_ms, plain_ms=plain_ms)
+                   k3_bound_share=bound_ms / k3_ms, plain_ms=plain_ms,
+                   thread_warp_lane_share=thread_warp_share(
+                       _k3_work(per_ray)),
+                   **{f"kernel_{k}": v for k, v in rounds.items()},
+                   split_share_of_leaf_rounds=(rounds["split_rounds"]
+                                               / max(leaf_rounds, 1)))
         log(f"[bvh] {json.dumps(res)}")
         k3.append(res)
     return k3
@@ -1966,9 +2036,12 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             library_ms=r["k2_library_ms"]))
     for r in k3_results:
         out.append(dict(
-            name=f"K3 traversal ({r['scene']} {where})",
+            name=(f"K3 traversal, redesigned ({r['scene']} {where}, "
+                  f"{r['path']} geometry)"),
             route="cuda", source=src["traversal"],
             replaces="raytracers_tpu/render/pallas_traversal.py:116",
+            status=("redesigned: persistent warps, ballot policy, leaves "
+                    "split over the warp"),
             launches=r["k3_launches"],
             max_abs_err=k3_checkers[r["scene"]].max_abs_err,
             ms=r["k3_ms"], plain_ms=r["plain_ms"],

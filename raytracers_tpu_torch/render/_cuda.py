@@ -39,7 +39,8 @@ KERNELS = {
                    [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                     _p]),
     "traversal": ("traversal.cu", "rt_traversal_launch",
-                  [_p, _p, _p, _p, _i, _i, _i, _i, _p, _i, _i, _i, _p]),
+                  [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p, _i, _i, _i, _p,
+                   _p, _p]),
     # the probes M1-M4 behind one launch function with a probe selector
     "microbench": ("microbench.cu", "rt_microbench_launch",
                    [_i, _i, _i, _i, _i, _p, _p, _p, _p, _p]),

@@ -15,9 +15,12 @@ dies or reaches ``max_depth``.
 * ``TraversalScene`` / ``build_traversal_scene`` lay the tables out exactly
   as the JAX package does, so the tests can hold them equal;
 * ``traversal_kernel`` is the wrapper of the hand-written CUDA kernel
-  (``csrc/traversal.cu``), one thread per ray; on a CPU tensor it takes
-  ``traversal_kernel_reference``, the plain torch version with the same
-  per-ray arithmetic, which also counts each ray's work;
+  (``csrc/traversal.cu``: persistent warps whose lanes take new rays, a
+  ballot policy for leaf rounds, leaves split over the warp;
+  ``traversal_model`` models the schedule); ``geometry_in_shared`` is its
+  path rule.  On a CPU tensor it takes ``traversal_kernel_reference``, the
+  plain torch version with the same per-ray arithmetic, which also counts
+  each ray's work;
 * ``render_traversal`` (one launch) and ``traversal_reference`` (the plain
   version through the same ray order) drive them.
 
@@ -27,7 +30,8 @@ a strictly smaller t winning (so the first visit wins a tie), and shades
 with the window ``w_hi = best_t + 1``.  Each ray's visit sequence and
 ``best_t`` depend only on its own path, so the TPU kernel's per-tile
 choice between a tree step and a leaf round (pallas_traversal.py:268-274)
-changes nothing per ray and has no counterpart here.  ``rsqrt(a)`` of the
+changes nothing per ray: the plain version walks every ray each step, and
+the kernel keeps the choice, per warp, for its time.  ``rsqrt(a)`` of the
 TPU shading (pallas_traversal.py:326) is ``1/sqrt(a)``; square roots are
 correctly rounded (``vec.sqrt``); min/max propagate NaN, so a NaN slab
 stage keeps the node.
@@ -54,6 +58,16 @@ _DONE = -1.0
 # root outside the window), bounces run, and bounces that ended on the sky
 STATS = ("node_steps", "slot_tests", "slot_roots", "far_roots",
          "ray_bounces", "sky_bounces")
+STEP_INNER, STEP_LEAF = 1, 2        # a walk step's kind in a trace
+# the kernel's counters of a launch: warp rounds by kind (a tree step, a
+# serial and a split leaf round, a shading), and the leaves tested in leaf
+# rounds of each kind
+COUNTERS = ("tree_steps", "serial_rounds", "split_rounds", "serial_leaves",
+            "split_leaves", "shade_rounds")
+# shared memory a block may opt into on sm_90 (227 KB), and the part the
+# inner table and the leaf skips take
+SMEM_LIMIT = 232_448
+TABLE_SMEM = 9 * LANE * 4
 
 
 class TraversalScene(NamedTuple):
@@ -166,15 +180,10 @@ def _slab_step(inner, node, best_t, o, inv):
     return ok
 
 
-def _leaf_round(spheres, c, best_t, o, d, a, inv_a, far_root: bool):
-    """The K sphere tests of each ray's leaf c (pallas_traversal.py:233-
-    266) -> (winner's t, its slot, improved, slots with disc > 0, far
-    roots tried).  The kernel tests the slots in order, each in (eps, the
-    running best): a slot's root in a smaller window is its root in the
-    larger one if that lies inside, else none, so testing all in (eps,
-    best_t at entry) and taking the first smallest gives the same winner
-    and t, and the running best before slot k is the entry best lowered by
-    the roots of slots 0..k-1."""
+def _slot_t(spheres, c, best_t, o, d, a, inv_a, far_root: bool):
+    """Each ray's root of each slot of its leaf c in the window (eps,
+    best_t), as ``sphere_t`` of the kernel computes it -> (t (m, K), BIG
+    where none; disc > 0 (m, K); the near root (m, K))."""
     sx, sy, sz, sr = (spheres[:, f, c].T for f in range(4))      # (m, K)
     ox, oy, oz = (x[:, None] for x in o)
     dx, dy, dz = (x[:, None] for x in d)
@@ -193,7 +202,20 @@ def _leaf_round(spheres, c, best_t, o, d, a, inv_a, far_root: bool):
         t = torch.where(ok0, t0, torch.where(ok1, t1, _BIG))
     else:
         t = torch.where(ok0, t0, _BIG)
-    r = torch.where(pos, t, _BIG)
+    return torch.where(pos, t, _BIG), pos, t0
+
+
+def _leaf_round(spheres, c, best_t, o, d, a, inv_a, far_root: bool):
+    """The K sphere tests of each ray's leaf c (pallas_traversal.py:233-
+    266) -> (winner's t, its slot, improved, slots with disc > 0, far
+    roots tried).  The kernel tests the slots in order, each in (eps, the
+    running best): a slot's root in a smaller window is its root in the
+    larger one if that lies inside, else none, so testing all in (eps,
+    best_t at entry) and taking the first smallest gives the same winner
+    and t, and the running best before slot k is the entry best lowered by
+    the roots of slots 0..k-1."""
+    r, pos, t0 = _slot_t(spheres, c, best_t, o, d, a, inv_a, far_root)
+    bt = best_t[:, None]
     k_t, k_best = torch.min(r, dim=1)
     roots = pos.sum(dim=1, dtype=torch.int32)
     if far_root:
@@ -207,11 +229,13 @@ def _leaf_round(spheres, c, best_t, o, d, a, inv_a, far_root: bool):
 
 
 def _closest_hit(scene: TraversalScene, C: int, K: int, o, d, a,
-                 far_root: bool):
+                 far_root: bool, steps: list | None = None):
     """Each live ray's own walk (pallas_traversal.py:184-295): returns the
     winner's t (BIG on a miss), cluster and slot, and per ray (4, m) its
     node steps, sphere slots tested, slots with disc > 0 and far roots
-    tried.  A preorder walk visits each of the 2C-1 nodes at most once."""
+    tried.  A preorder walk visits each of the 2C-1 nodes at most once.
+    ``steps``, where given, gets each step's (m,) int8 kinds: 0 walk over,
+    ``STEP_INNER`` or ``STEP_LEAF``."""
     NI = C - 1
     m = a.shape[0]
     dev = a.device
@@ -230,6 +254,11 @@ def _closest_hit(scene: TraversalScene, C: int, K: int, o, d, a,
         at_leaf = (cur >= NI).nonzero().squeeze(1)
         if at_tree.numel() == 0 and at_leaf.numel() == 0:
             break
+        if steps is not None:
+            kind = torch.zeros(m, dtype=torch.int8, device=dev)
+            kind[at_tree] = STEP_INNER
+            kind[at_leaf] = STEP_LEAF
+            steps.append(kind)
         if at_tree.numel():
             node = cur[at_tree]
             ok = _slab_step(scene.inner, node, best_t[at_tree],
@@ -288,11 +317,14 @@ def traversal_kernel_reference(scene: TraversalScene, params: torch.Tensor,
                                n_rays: int, tile: int, *, n_clusters: int,
                                leaf_size: int, max_depth: int = MAX_DEPTH,
                                far_root: bool = True,
-                               block_tiled: bool = False):
+                               block_tiled: bool = False,
+                               trace: list | None = None):
     """Plain torch version of K3, on any device, with the kernel's per-ray
     arithmetic.  Returns (packed (n_rays,) int32, stats (len(STATS),
     n_rays) int32): per ray the counters named in ``STATS``.  Bounces run
-    over the live rays only, as the walk steps do."""
+    over the live rays only, as the walk steps do.  ``trace``, where
+    given, gets per bounce (the live rays' indices, the (steps, m) int8
+    kinds of their walk steps), for ``traversal_model``."""
     _check(scene, params, n_rays, tile, n_clusters, leaf_size, max_depth)
     C, K = n_clusters, leaf_size
     dev = params.device
@@ -306,8 +338,12 @@ def traversal_kernel_reference(scene: TraversalScene, params: torch.Tensor,
         ox, oy, oz, dx, dy, dz, lr, lg, lb, rr, rg, rb = S[:12, live]
         o, d = (ox, oy, oz), (dx, dy, dz)
         a = dx * dx + dy * dy + dz * dz
+        steps = None if trace is None else []
         best_t, best_c, best_k, counts = _closest_hit(
-            scene, C, K, o, d, a, far_root)
+            scene, C, K, o, d, a, far_root, steps)
+        if trace is not None:
+            trace.append((live, torch.stack(steps) if steps else
+                          torch.zeros(0, live.numel(), dtype=torch.int8)))
         hit = best_t < _BIG
         stats[:4, live] += counts
         stats[4, live] += 1
@@ -337,40 +373,74 @@ def traversal_kernel_reference(scene: TraversalScene, params: torch.Tensor,
 # the kernel's wrapper
 
 
+def geometry_in_shared(n_clusters: int, leaf_size: int) -> bool:
+    """The kernel's path for a scene: its geometry (cx, cy, cz, r of the
+    C*K slots, 16 bytes each, cluster-major) in each block's shared memory
+    where it fits beside the inner table and the leaf skips (irreg: 127 x
+    79 slots, 160.5 KB), else read from global memory in the same layout."""
+    return TABLE_SMEM + 16 * n_clusters * leaf_size <= SMEM_LIMIT
+
+
+def cluster_major(scene: TraversalScene, n_clusters: int) -> torch.Tensor:
+    """(C, K, 4) float32: slot k of cluster c as cx, cy, cz, r; the global
+    path's geometry, one copy a launch."""
+    return scene.spheres[:, :4, :n_clusters].permute(2, 0, 1).contiguous()
+
+
 def traversal_kernel(scene: TraversalScene, params: torch.Tensor,
                      n_rays: int, tile: int, *, n_clusters: int,
                      leaf_size: int, max_depth: int = MAX_DEPTH,
-                     far_root: bool = True, block_tiled: bool = False):
+                     far_root: bool = True, block_tiled: bool = False,
+                     counters: torch.Tensor | None = None):
     """K3: render ``n_rays`` rays of the ray order in ``params`` (scanline
     or ``block_tiled``) to ``max_depth`` bounces -> packed (n_rays,) int32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
     kernel on the current stream, without synchronising, and counts the
-    launch in ``traversal_kernel.launches``."""
+    launch in ``traversal_kernel.launches`` and by path (``"shared"`` or
+    ``"global"``, the rule ``geometry_in_shared``) in
+    ``traversal_kernel.path_launches``.  ``counters``, an int64
+    (len(COUNTERS),) tensor on the card, gets the launch's warp rounds
+    added (the kernel's own; the plain version has no warps)."""
     _check(scene, params, n_rays, tile, n_clusters, leaf_size, max_depth)
-    if params.device.type == "cpu":
+    dev = params.device
+    if counters is not None and (
+            counters.device != dev or counters.dtype != torch.int64
+            or tuple(counters.shape) != (len(COUNTERS),)
+            or not counters.is_contiguous()):
+        raise ValueError(f"counters must be a contiguous int64 "
+                         f"({len(COUNTERS)},) tensor on {dev}")
+    if dev.type == "cpu":
+        if counters is not None:
+            raise ValueError("counters count the kernel's warp rounds; "
+                             "the plain version has none")
         return traversal_kernel_reference(
             scene, params, n_rays, tile, n_clusters=n_clusters,
             leaf_size=leaf_size, max_depth=max_depth, far_root=far_root,
             block_tiled=block_tiled)[0]
-    if params.device.type != "cuda":
-        raise ValueError(f"unsupported device {params.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     from . import _cuda
     fn = _cuda.load("traversal")
-    packed = torch.empty(n_rays, dtype=torch.int32, device=params.device)
+    shared = geometry_in_shared(n_clusters, leaf_size)
+    geo = None if shared else cluster_major(scene, n_clusters)
+    packed = torch.empty(n_rays, dtype=torch.int32, device=dev)
+    work = torch.empty(1, dtype=torch.int32, device=dev)  # the ray counter
     rc = fn(_ptr(params), _ptr(scene.inner), _ptr(scene.leaf_skip),
-            _ptr(scene.spheres), n_clusters, leaf_size, max_depth,
-            int(far_root), _ptr(packed), n_rays, tile, int(block_tiled),
-            ctypes.c_void_p(torch.cuda.current_stream(params.device)
-                            .cuda_stream))
+            _ptr(scene.spheres), _ptr(geo), n_clusters, leaf_size,
+            max_depth, int(far_root), _ptr(packed), n_rays, tile,
+            int(block_tiled), _ptr(work), _ptr(counters),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError("traversal launch failed: "
                            + _cuda.error_string("traversal", rc))
     traversal_kernel.launches += 1
+    traversal_kernel.path_launches["shared" if shared else "global"] += 1
     return packed
 
 
 traversal_kernel.launches = 0
+traversal_kernel.path_launches = {"shared": 0, "global": 0}
 
 
 # ---------------------------------------------------------------------------
