@@ -31,8 +31,10 @@ a failed phase exits non-zero before the final line:
    the scene's ``pallas_diff_config``, with every K2 launch repeated by the
    plain version (per-ray cotangents, carries and per-bounce cotangents
    bit-equal; the slot table within its summation-order bound, plus the
-   subnormals its float32 atomics flush); the replayed colours of K2
-   (``emit_fwd``) bit-equal to K1d's at the full depth;
+   subnormals its float32 atomics flush; the kernel's counters, atomic
+   row-adds and warp iterations, equal to ``replay_bwd_model.warp_groups``'
+   counts on the records); the replayed colours of K2 (``emit_fwd``)
+   bit-equal to K1d's at the full depth;
 4. goldens: ``render(mode="pallas")`` at 200x200 against ``tests/golden``;
 5. main path, render, for each cell: launches counted from zero around one
    render (and by route), render times with CUDA events, per-phase K1 times
@@ -53,7 +55,10 @@ a failed phase exits non-zero before the final line:
    gradients, step times with CUDA events, per-launch K1d times on both
    routes in turns as phase 5 times them, K2 times, one
    profiled step, the bounds, and the gradient against the plain engine on
-   the card;
+   the card; per K2 segment (``K2 segment`` lines) its time, bounces, atomic
+   row-adds (the model's, equal to the kernel's counters on the same
+   inputs), conflict factor (bounces per row-add) and ``index_add_``'s
+   time;
 7. the BVH path against its plain versions: ``build_bvh`` on the card
    field for field equal to the CPU build (rgbbox, irreg and plane at leaf
    8, the 1M-sphere soup of ``bench.py`` at leaf 128 and 8),
@@ -200,6 +205,9 @@ STATE_BYTES = 13 * 4            # the ray state a phase reads or writes
 OPS_PER_K2_BOUNCE = _ops(351, sqrt=6, div=7)
 OPS_PER_K2_END = _ops(61, sqrt=2, div=2)
 K2_SCRATCH_BYTES = 2 * 9 * 4    # o, d, light of a step, written and read
+K2_STATUS = ("redesigned: a warp-uniform backward sweep, each warp's "
+             "bounces on one slot summed in registers before one atomic "
+             "row-add")
 PAY_BYTES = 28                  # the winner's 7 fields, at a bounce
 F32_EPS = 2.0 ** -24            # float32 unit roundoff
 # float32 atomic adds flush subnormal operands and results to zero: each
@@ -347,14 +355,18 @@ class CheckedK2:
     cotangents must be bit-equal; the slot table must lie within
     ``_slot_bound`` of the float64 sum of the plain per-bounce cotangents,
     since the kernel adds it with float32 atomics in no fixed order (which
-    also flush subnormals: ``F32_FTZ`` an add)."""
+    also flush subnormals: ``F32_FTZ`` an add).  A third launch with the
+    kernel's counters must report the atomic row-adds and warp iterations
+    that ``replay_bwd_model.warp_groups`` counts on the records."""
 
     def __init__(self, label: str):
         from raytracers_tpu_torch.grad import replay_bwd as rb
-        self.rb, self.label = rb, label
+        from raytracers_tpu_torch.grad import replay_bwd_model as model
+        self.rb, self.model, self.label = rb, model, label
         self.checks = 0
         self.max_abs_err = 0.0          # per-ray outputs and the table
         self.table_err_share = 0.0      # largest error / its bound
+        self.bounces = self.row_adds = 0    # of the table launches
 
     def _equal(self, what, out, ref):
         g = _first_diff(out, ref)
@@ -395,7 +407,24 @@ class CheckedK2:
             self.table_err_share = max(self.table_err_share,
                                        float(share.max()))
             self.checks += 1
+        self._counters(params, rec, pay, gcot, kw)
         return out
+
+    def _counters(self, params, rec, pay, gcot, kw):
+        got = self.rb.replay_bwd(params, rec, pay, gcot, counters=True,
+                                 **kw)[3].tolist()
+        groups = self.model.warp_groups(rec)
+        table = kw.get("reduce_slots") is not None
+        want = [groups.row_adds if table else 0, groups.warp_iterations]
+        if got != want:
+            names = self.rb.COUNTERS
+            raise SmokeError(f"{self.label}: K2 counters "
+                             f"{dict(zip(names, got))}, the model's "
+                             f"{dict(zip(names, want))}")
+        if table:
+            self.bounces += groups.bounces
+            self.row_adds += groups.row_adds
+        self.checks += 1
 
 
 class Timed:
@@ -1071,6 +1100,10 @@ class Captured:
         self.calls.append((args, kw))
         return self.fn(*args, **kw)
 
+    def segments(self):
+        """The launches by segment (the engine runs the deepest first)."""
+        return self.calls[::-1]
+
 
 class PlainK2:
     """K2's plain version on the card, timed, summing per slot the float64
@@ -1143,17 +1176,17 @@ def _k2_bound(launches, n_rays: int, n_slots: int):
     return bound, scratch / HBM_BYTES_PER_S * 1e3
 
 
-def _index_add_ms(captured, n_slots: int) -> float:
+def _index_add_ms(captured, n_slots: int) -> list[float]:
     """The library call for K2's slot reduction: one ``index_add_`` of each
     segment's per-bounce cotangents onto the slot table, timed with CUDA
-    events on the main path's inputs and summed over the segments.  Only
-    the bounce steps' rows are added (the others carry zeros, and sending
-    them to one slot would time the contention of that slot instead)."""
+    events on the main path's inputs, by segment.  Only the bounce steps'
+    rows are added (the others carry zeros, and sending them to one slot
+    would time the contention of that slot instead)."""
     import torch
     from raytracers_tpu_torch.grad import replay_bwd as rb
     from raytracers_tpu_torch.utils.timing import cuda_ms
-    total = 0.0
-    for args, kw in captured.calls:
+    out = []
+    for args, kw in captured.segments():
         step, _, _ = rb.replay_bwd(*args, **dict(kw, reduce_slots=None))
         ids = args[1].reshape(-1)
         bnc = ids >= 0
@@ -1161,9 +1194,28 @@ def _index_add_ms(captured, n_slots: int) -> float:
         idx = ids[bnc].long()
         del step
         tab = torch.zeros(n_slots, 7, dtype=torch.float32, device=src.device)
-        total += cuda_ms(lambda: tab.index_add_(0, idx, src), warmup=1,
-                         runs=3)
-    return total
+        out.append(cuda_ms(lambda: tab.index_add_(0, idx, src), warmup=1,
+                           runs=3))
+    return out
+
+
+def _k2_groups(captured) -> list[dict]:
+    """Per segment of the captured step: bounces, K2's atomic row-adds and
+    warp iterations, from ``replay_bwd_model.warp_groups`` and from the
+    kernel's counters (a launch on the same inputs), which must agree."""
+    from raytracers_tpu_torch.grad import replay_bwd as rb
+    from raytracers_tpu_torch.grad import replay_bwd_model as model
+    out = []
+    for s, (args, kw) in enumerate(captured.segments()):
+        g = model.warp_groups(args[1])
+        got = rb.replay_bwd(*args, counters=True, **kw)[3].tolist()
+        if got != [g.row_adds, g.warp_iterations]:
+            raise SmokeError(f"K2 segment {s}: counters {got}, the model's "
+                             f"{[g.row_adds, g.warp_iterations]}")
+        out.append(dict(bounces=g.bounces, row_adds=g.row_adds,
+                        warp_iterations=g.warp_iterations,
+                        conflict=g.conflict))
+    return out
 
 
 def phase_fwdbwd(port, name: str, cluster_width=None,
@@ -1225,8 +1277,16 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     (k1d_bound, k1d_by), stats = _k1d_bound(counted.launches, ps, n_rays)
     (k2_bound, k2_by), k2_scratch_ms = _k2_bound(counted.launches, n_rays,
                                                  n_slots)
-    library_ms = _index_add_ms(captured, n_slots)
+    library_seg_ms = _index_add_ms(captured, n_slots)
+    library_ms = sum(library_seg_ms)
+    groups = _k2_groups(captured)
     del captured
+    for s, (ms, gr, lib) in enumerate(zip(k2_ms, groups, library_seg_ms)):
+        log(f"[{tag}] {name} K2 segment {s}: {ms:.4f} ms, {gr['bounces']} "
+            f"bounces, {gr['row_adds']} row-adds, conflict factor "
+            f"{gr['conflict']:.2f}, index_add_ {lib:.4f} ms")
+    k2_conflict = (sum(g["bounces"] for g in groups)
+                   / max(sum(g["row_adds"] for g in groups), 1))
 
     # the plain engine on the card: K1d's and K2's plain versions
     p_k1d = Timed(mk.megakernel_reference, n_phases)
@@ -1288,6 +1348,10 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
                k2_bound_ms=k2_bound, k2_bound_by=k2_by,
                k2_scratch_bytes_ms=k2_scratch_ms,
                k2_library_ms=library_ms,
+               k2_library_segment_ms=library_seg_ms,
+               k2_row_adds=[g["row_adds"] for g in groups],
+               k2_warp_iterations=[g["warp_iterations"] for g in groups],
+               k2_conflict=k2_conflict,
                plain_k1d_ms=sum(p_k1d.phase_ms()),
                plain_k2_ms=sum(p_k2.timed.phase_ms()),
                plain_step_ms=plain_step_ms,
@@ -2026,9 +2090,11 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             bound_ms=r["k1d_bound_ms"], bound_by=r["k1d_bound_by"],
             library_ms=None))
         out.append(dict(
-            name=f"K2 replay_bwd ({r['scene']} fwd+bwd {where})",
+            name=(f"K2 replay_bwd, redesigned ({r['scene']} fwd+bwd "
+                  f"{where})"),
             route="cuda", source=src["replay_bwd"],
             replaces="raytracers_tpu/grad/pallas_replay_bwd.py:104",
+            status=K2_STATUS, conflict_factor=r["k2_conflict"],
             launches=r["k2_launches"], max_abs_err=k2.max_abs_err,
             table_err_share_of_bound=k2.table_err_share,
             ms=r["k2_ms"], plain_ms=r["plain_k2_ms"],
@@ -2077,9 +2143,11 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             bound_ms=r["k1d_bound_ms"], bound_by=r["k1d_bound_by"],
             library_ms=None))
         out.append(dict(
-            name=f"K2 replay_bwd at W=64 ({scene} fwd+bwd {where})",
+            name=(f"K2 replay_bwd at W=64, redesigned ({scene} fwd+bwd "
+                  f"{where})"),
             route="cuda", source=src["replay_bwd"],
             replaces="raytracers_tpu/grad/pallas_replay_bwd.py:104",
+            status=K2_STATUS, conflict_factor=r["k2_conflict"],
             launches=r["k2_launches"], max_abs_err=k2.max_abs_err,
             table_err_share_of_bound=k2.table_err_share,
             ms=r["k2_ms"], plain_ms=r["plain_k2_ms"],

@@ -31,7 +31,9 @@ d/d(cx cy cz rad cr cg cb) at each bounce and zero elsewhere, or with
 over every bounce that hit it.  ``cotray`` is (6, n), the cotangents of
 each primary ray's origin and direction, or for a continuation (9, n), the
 carry at the segment's start (zero for a ray inactive there).  ``fwd`` is
-the replayed colours (3, n) with ``emit_fwd``, else None.
+the replayed colours (3, n) with ``emit_fwd``, else None.  With
+``counters=True`` (the kernel only) a fourth result, int64 (2,) on the
+card: the launch's ``COUNTERS``.
 """
 from __future__ import annotations
 
@@ -46,6 +48,11 @@ from ..vec import sqrt
 
 N_GCOT = 12        # image cotangent (3) + incoming carry (9)
 N_CARRY = 9        # cotangents of o, d, light
+# the kernel's counters of a launch: atomic row-adds into the slot table
+# (one a group of lanes on one slot, 7 float32 atomics each) and pass-2
+# iterations summed over warps (each runs its longest path's steps);
+# grad/replay_bwd_model.py:warp_groups gives both from the records
+COUNTERS = ("row_adds", "warp_iterations")
 
 
 def _check(params, rec, pay, gcot, state_rows, reduce_slots):
@@ -72,16 +79,23 @@ def _check(params, rec, pay, gcot, state_rows, reduce_slots):
 
 def replay_bwd(params, rec, pay, gcot, *, tile: int,
                block_tiled: bool = False, state_rows=None,
-               emit_fwd: bool = False, reduce_slots: int | None = None):
+               emit_fwd: bool = False, reduce_slots: int | None = None,
+               counters: bool = False):
     """K2 over the rays of one segment (see the module's docstring for the
     arguments and results).
 
     A CPU tensor takes ``replay_bwd_reference``; a CUDA tensor launches the
     CUDA kernel on the current stream, without synchronising, and counts the
-    launch in ``replay_bwd.launches``.  The kernel adds each bounce into the
-    slot table with float32 atomics, so the table's last bits change from
-    run to run; every other output is bit-equal to the plain version's."""
+    launch in ``replay_bwd.launches``.  The kernel sums each warp's bounces
+    on one slot in registers and adds each sum into the slot table with
+    float32 atomics, so the table's last bits change from run to run; every
+    other output is bit-equal to the plain version's.  ``counters=True``
+    also returns the launch's ``COUNTERS``; the plain version has none, so
+    it raises on the CPU."""
     _check(params, rec, pay, gcot, state_rows, reduce_slots)
+    if counters and rec.device.type != "cuda":
+        raise ValueError("counters count the kernel's row-adds and warp "
+                         "iterations; the plain version has none")
     if rec.device.type == "cpu":
         return replay_bwd_reference(params, rec, pay, gcot, tile=tile,
                                     block_tiled=block_tiled,
@@ -102,15 +116,18 @@ def replay_bwd(params, rec, pay, gcot, *, tile: int,
         table = torch.zeros(reduce_slots, 7, **f32)
     cotray = torch.empty(N_CARRY if state_rows is not None else 6, n, **f32)
     fwd = torch.empty(3, n, **f32) if emit_fwd else None
+    cnt = (torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+           if counters else None)
     rc = fn(_ptr(params), _ptr(rec), _ptr(pay), _ptr(gcot), _ptr(state_rows),
             _ptr(scratch), _ptr(cot_step), _ptr(table), _ptr(cotray),
-            _ptr(fwd), D, n, tile, int(block_tiled),
+            _ptr(fwd), _ptr(cnt), D, n, tile, int(block_tiled),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError("replay_bwd launch failed: "
                            + _cuda.error_string("replay_bwd", rc))
     replay_bwd.launches += 1
-    return (cot_step if table is None else table), cotray, fwd
+    out = (cot_step if table is None else table), cotray, fwd
+    return out + (cnt,) if counters else out
 
 
 replay_bwd.launches = 0

@@ -36,8 +36,8 @@ KERNELS = {
                    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                     _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _p]),
     "replay_bwd": ("replay_bwd.cu", "rt_replay_bwd_launch",
-                   [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
-                    _p]),
+                   [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                    _i, _p]),
     "traversal": ("traversal.cu", "rt_traversal_launch",
                   [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p, _i, _i, _i, _p,
                    _p, _p]),
