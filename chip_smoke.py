@@ -128,7 +128,30 @@ a failed phase exits non-zero before the final line:
    seeded set.  M5, M6 and M7's ``vpu`` are bit-equal to their plain
    versions; ``mxuquad``'s product lies within its bound of the float64
    product and its visit is bit-equal given that product, and the rays
-   whose winner equals the ``vpu`` visit's are printed.
+   whose winner equals the ``vpu`` visit's are printed;
+11. the trainer (``[train]`` lines): ``make_train_step_pallas`` on a
+   one-rank NCCL mesh (a ``HashStore``, world size 1), rgbbox at
+   1000x1000, depth 50, ``pallas_diff_config``, colours perturbed as
+   ``examples/rgbbox_recovery.py`` perturbs them, only colours trainable:
+   launches counted from zero around one step (phase 6's K1d and K2), 10
+   steps whose losses are finite and fall, ``train_step_ms`` (3 rounds of
+   3 steps, CUDA events) beside phase 6's ``fwdbwd_ms`` and their
+   difference (the all-reduce, Adam and the clamps), a profile of one
+   step; the one-rank loss
+   bit-equal to the plain engine's and its gradients within phase 6's
+   summation-order bound (K2's slot table adds in no fixed order, so two
+   kernel runs need not agree bit for bit; the unsharded kernel engine's
+   are printed, held to the slabs' tolerances).  Then four ranks in this
+   process: ``render_pallas_slab`` of ranks 0-3 at 1000x1000, depth 50,
+   both scenes, assembled bit-equal to ``render(mode="pallas")``; the four
+   bands' summed loss and gradients at 256x256, depth 3, against the
+   unsharded engine: on tests/test_sharding.py:186's toy scene within its
+   tolerances (:214-220), on rgbbox printed with the share of pixels whose
+   banded path differs (a band camera rounds each ray direction once, and
+   rgbbox's mirror cascades carry that to other paths).  Last, ``recover`` over the all-pairs oracle (64x64, depth
+   2, 4 steps) resumed from a checkpoint after step 2 within 1e-5 of an
+   uninterrupted run, and ``render(mode="brute_matmul")`` differing from
+   ``brute`` on under 1% of the 64x64 pixels.
 
 The line before the last is the kernels' JSON record (each K1 entry with
 the lanes per ray of each launch); the last line is
@@ -137,6 +160,7 @@ the lanes per ray of each launch); the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1218,6 +1242,35 @@ def _k2_groups(captured) -> list[dict]:
     return out
 
 
+def _sphere_grad_check(name: str, ps, p_k2, n_phases: int, grads, plain):
+    """Sphere gradients (centre, radius, colour) of the kernel engine
+    against the plain engine's, whose K2 ran as ``p_k2`` (a ``PlainK2``):
+    the kernel's slot tables sum in no fixed order, the plain engine's in
+    float64, so per sphere they may differ by (count + 2 segments + 2) unit
+    roundoffs of the sum of magnitudes, plus the subnormals flushed.
+    Returns (|error|, bound, plain) per sphere and field, float64."""
+    import torch
+    ordv = ps.order.reshape(-1).long()
+    real = ordv >= 0
+    n_sph = grads[0].shape[0]
+    f64 = dict(dtype=torch.float64, device=ordv.device)
+    mag = torch.zeros(n_sph, 7, **f64).index_add_(0, ordv[real],
+                                                  p_k2.mag[real])
+    count = torch.zeros(n_sph, **f64).index_add_(0, ordv[real],
+                                                 p_k2.count[real])
+    bound = ((count[:, None] + 2 * n_phases + 2) * F32_EPS * mag
+             + count[:, None] * F32_FTZ)
+    got = torch.cat([grads[0], grads[1][:, None], grads[2]], 1).double()
+    want = torch.cat([plain[0], plain[1][:, None], plain[2]], 1).double()
+    err = (got - want).abs()
+    if (err > bound).any():
+        i = int((err > bound).nonzero()[0, 0])
+        raise SmokeError(f"{name}: sphere {i}'s gradient {got[i].tolist()} "
+                         f"against the plain {want[i].tolist()}, bound "
+                         f"{bound[i].tolist()}")
+    return err, bound, want
+
+
 def phase_fwdbwd(port, name: str, cluster_width=None,
                  tag: str = "fwdbwd") -> dict:
     """The fwd+bwd main path at SIZE, depth DEPTH, the engine's layout at
@@ -1302,28 +1355,8 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     if not torch.equal(img.view(torch.int32), img_p.view(torch.int32)):
         raise SmokeError(f"{name}: the fwd+bwd image differs from the plain "
                          "engine's")
-    # sphere gradients: the kernel's slot tables sum in no fixed order, the
-    # plain engine's in float64; per sphere they may differ by (count + 2
-    # segments + 2) unit roundoffs of the sum of magnitudes
-    ordv = ps.order.reshape(-1).long()
-    real = ordv >= 0
-    n_sph = spheres.center.shape[0]
-    f64 = dict(dtype=torch.float64, device=ordv.device)
-    mag = torch.zeros(n_sph, 7, **f64).index_add_(0, ordv[real],
-                                                  p_k2.mag[real])
-    count = torch.zeros(n_sph, **f64).index_add_(0, ordv[real],
-                                                 p_k2.count[real])
-    bound = ((count[:, None] + 2 * n_phases + 2) * F32_EPS * mag
-             + count[:, None] * F32_FTZ)
-    got = torch.cat([grads[0], grads[1][:, None], grads[2]], 1).double()
-    want = torch.cat([grads_p[0], grads_p[1][:, None], grads_p[2]],
-                     1).double()
-    sph_err = (got - want).abs()
-    if (sph_err > bound).any():
-        i = int((sph_err > bound).nonzero()[0, 0])
-        raise SmokeError(f"{name}: sphere {i}'s gradient {got[i].tolist()} "
-                         f"against the plain {want[i].tolist()}, bound "
-                         f"{bound[i].tolist()}")
+    sph_err, bound, want = _sphere_grad_check(name, ps, p_k2, n_phases,
+                                              grads[:3], grads_p[:3])
     cam_rel = max(float((a - b).abs().max() / b.abs().max())
                   for a, b in zip(grads[3:], grads_p[3:]))
     if cam_rel > 1e-6:
@@ -2051,11 +2084,300 @@ def phase_probes() -> dict:
     return dict(entries=entries, launches=launches)
 
 
+# phase 11: the trainer
+TRAIN_STEPS = 10                # the fit's steps, losses finite and falling
+TRAIN_LR = 2e-3                 # examples/rgbbox_recovery.py's colour rate
+SLABS = 4                       # ranks run in one process (phase 11)
+SLAB_GRAD_SIZE, SLAB_GRAD_DEPTH = 256, 3
+# the sharded step's summed loss and gradients against the unsharded
+# engine's (tests/test_sharding.py:214-220): each band's camera rounds its
+# ray directions once
+SLAB_LOSS_RTOL, SLAB_GRAD_RTOL, SLAB_GRAD_ATOL = 1e-5, 2e-4, 2e-5
+BRUTE_SIZE, BRUTE_DEPTH, BRUTE_STEPS = 64, 2, 4
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def _close(what: str, got, want, rtol: float, atol: float = 0.0) -> float:
+    """Fail unless |got - want| <= atol + rtol |want| everywhere; returns
+    the largest |got - want| / max |want|."""
+    import torch
+    got, want = got.double(), want.double()
+    if not torch.isfinite(got).all():
+        raise SmokeError(f"{what}: not finite")
+    gap = (got - want).abs()
+    if (gap > atol + rtol * want.abs()).any():
+        i = int((gap > atol + rtol * want.abs()).reshape(-1).nonzero()[0])
+        raise SmokeError(f"{what}: {got.reshape(-1)[i].item()} against "
+                         f"{want.reshape(-1)[i].item()} (rtol {rtol}, atol "
+                         f"{atol})")
+    return float(gap.max() / want.abs().max().clamp(min=1e-30))
+
+
+def _train_one_rank(port, fb) -> dict:
+    """The train step of the megakernel's engine on a one-rank NCCL mesh
+    (a HashStore, world size 1), rgbbox at SIZE, depth DEPTH, the class's
+    ``pallas_diff_config``, colours perturbed as the example perturbs them
+    and only colours trainable."""
+    import torch
+    import torch.distributed as dist
+    from raytracers_tpu_torch.examples.rgbbox_recovery import perturb
+    from raytracers_tpu_torch.geometry import Spheres
+    from raytracers_tpu_torch.grad import replay_bwd as rb
+    from raytracers_tpu_torch.grad.inverse import (adam, init_state,
+                                                   make_train_step_pallas)
+    from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+    from raytracers_tpu_torch.parallel.mesh import ray_mesh
+    from raytracers_tpu_torch.render import megakernel as mk
+    from raytracers_tpu_torch.utils.timing import cuda_ms
+
+    truth, cam, ps, (tile, block, schedule, prefix) = _diff_scene(
+        port, "rgbbox", SIZE)
+    n_phases = len(schedule) + 1
+    cfg = dict(max_depth=DEPTH, tile=tile, block=block, schedule=schedule,
+               sort_prefix=prefix)
+    with torch.no_grad():
+        target = make_render_pallas_diff(SIZE, SIZE, **cfg)(truth, cam)
+    pert = perturb(truth, 0, 0.0, 0.0, 0.12)
+    trainable = Spheres(torch.zeros_like(truth.center),
+                        torch.zeros_like(truth.radius),
+                        torch.ones_like(truth.color))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = ray_mesh(device="cuda")
+        if (mesh.rank, mesh.size) != (0, 1) or mesh.group is None:
+            raise SmokeError(f"the one-rank NCCL mesh is {mesh}")
+        step = make_train_step_pallas(mesh, SIZE, SIZE, trainable=trainable,
+                                      **cfg)
+        state = init_state(pert, adam(TRAIN_LR))
+        step(state, cam, target)                              # warm-up
+        torch.cuda.synchronize()
+        mk.megakernel.launches = rb.replay_bwd.launches = 0
+        state, loss = step(state, cam, target)
+        torch.cuda.synchronize()
+        launches = (mk.megakernel.launches, rb.replay_bwd.launches)
+        if launches != (fb["k1d_launches"], fb["k2_launches"]):
+            raise SmokeError(f"one train step launched K1d and K2 {launches} "
+                             f"times; the fwd+bwd step of phase 6 "
+                             f"{fb['k1d_launches']}, {fb['k2_launches']}")
+        state = init_state(pert, adam(TRAIN_LR))
+        losses = [float(step(state, cam, target)[1])
+                  for _ in range(TRAIN_STEPS)]
+        if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+            raise SmokeError(f"the fit's losses {losses} are not finite or "
+                             "did not fall")
+        if not torch.equal(state.spheres.center, pert.center):
+            raise SmokeError("a masked parameter moved")
+        ms = [cuda_ms(lambda: step(state, cam, target), warmup=0,
+                      runs=FB_REPEATS) for _ in range(3)]
+        profile = _device_profile(lambda: step(state, cam, target))
+
+        # one rank: its loss and gradients against the plain engine's (K1d's
+        # and K2's plain versions on the card) and the unsharded kernel
+        # engine's, on the same inputs
+        loss_r, g_r = step.loss_and_grads(pert, cam, target)
+    finally:
+        dist.destroy_process_group()
+    p_k2 = PlainK2(ps.order.numel(), Timed(lambda fn, *a, **kw: fn(*a, **kw),
+                                           n_phases))
+    plain = make_render_pallas_diff(SIZE, SIZE, fwd_kernel=mk.megakernel_reference,
+                                    bwd_kernel=p_k2, **cfg)
+    unsharded = make_render_pallas_diff(SIZE, SIZE, **cfg)
+    ref = {}
+    for which, f in (("plain", plain), ("kernel", unsharded)):
+        sph = Spheres(*(t.detach().clone().requires_grad_(True)
+                        for t in pert))
+        lo = ((f(sph, cam) - target) ** 2).sum()
+        lo.backward()
+        ref[which] = (lo.detach(), [t.grad for t in sph])
+    if not torch.equal(loss_r, ref["plain"][0]):
+        raise SmokeError(f"the one-rank loss {float(loss_r)} is not the plain "
+                         f"engine's {float(ref['plain'][0])}")
+    err, bound, want = _sphere_grad_check("one-rank train step", ps, p_k2,
+                                          n_phases, list(g_r),
+                                          ref["plain"][1])
+    unsharded_bit_equal = torch.equal(loss_r, ref["kernel"][0]) and all(
+        torch.equal(a, b) for a, b in zip(g_r, ref["kernel"][1]))
+    # printed only: both runs' slot tables add in no fixed order
+    unsharded_rel = [float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(g_r, ref["kernel"][1])]
+    mean_ms = sum(ms) / len(ms)
+    return dict(scene="rgbbox", size=SIZE, depth=DEPTH, schedule=schedule,
+                k1d_launches=launches[0], k2_launches=launches[1],
+                losses=losses, train_step_ms=ms, train_step_ms_mean=mean_ms,
+                fwdbwd_ms_mean=fb["fwdbwd_ms_mean"],
+                step_minus_fwdbwd_ms=mean_ms - fb["fwdbwd_ms_mean"],
+                loss_bit_equal_plain=True,
+                sphere_grad_max_abs_err=float(err.max()),
+                sphere_grad_rel_err=float(err.max() / want.abs().max()),
+                sphere_grad_err_share_of_bound=float(
+                    (err / torch.where(bound > 0, bound, 1.0)).max()),
+                unsharded_kernel_bit_equal=unsharded_bit_equal,
+                unsharded_kernel_grad_rel=unsharded_rel, profile=profile)
+
+
+def _four_slabs(port) -> dict:
+    """SLABS ranks in this process: the render's slabs assembled against
+    ``render(mode="pallas")`` (both scenes, SIZE, DEPTH), and the step's
+    summed loss and gradients against the unsharded engine at
+    SLAB_GRAD_SIZE, SLAB_GRAD_DEPTH: held to the tolerances on
+    tests/test_sharding.py:186's toy scene; printed on rgbbox, whose
+    mirror cascades turn the band cameras' one rounding per ray direction
+    into other paths for a share of its pixels."""
+    import torch
+    from raytracers_tpu_torch.examples.rgbbox_recovery import perturb
+    from raytracers_tpu_torch.geometry import Spheres, camera
+    from raytracers_tpu_torch.grad.inverse import (band_camera,
+                                                   make_train_step_pallas)
+    from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+    from raytracers_tpu_torch.parallel.mesh import RayMesh, render_pallas_slab
+    from raytracers_tpu_torch.render.api import render
+    out = {}
+    for name in SCENES:
+        prep = _prepare(port, name, SIZE)
+        slabs = [render_pallas_slab(prep.pallas, prep.cam, SIZE, SIZE, r,
+                                    SLABS, max_depth=DEPTH)
+                 for r in range(SLABS)]
+        img = torch.cat(slabs)[:SIZE]
+        ref = render(prep, SIZE, SIZE, mode="pallas", max_depth=DEPTH)
+        g = _first_diff(img.reshape(-1), ref.reshape(-1))
+        if g is not None:
+            raise SmokeError(f"{name}: the {SLABS} slabs differ from the "
+                             f"one-rank render first at pixel {g}")
+        out[f"{name}_slab_rows"] = [int(t.shape[0]) for t in slabs]
+    n, rows = SLAB_GRAD_SIZE, SLAB_GRAD_SIZE // SLABS
+    sc = port.scenes.by_name("rgbbox")
+    toy = Spheres(torch.tensor([[0.0, 0.0, -5.0], [2.5, 0.0, -4.0]]),
+                  torch.tensor([1.5, 1.0]),
+                  torch.tensor([[0.8, 0.3, 0.2], [0.2, 0.6, 0.9]]))
+    cases = {
+        # tests/test_sharding.py:186's scene and perturbation
+        "toy": (toy, toy._replace(radius=toy.radius * torch.tensor(
+            [1.15, 0.9]), color=(toy.color + 0.1).clamp(0.0, 1.0)),
+            camera((0., 0., 2.), (0., 0., -5.), (0., 1., 0.), 60.0, 1.0)),
+        "rgbbox": (sc.spheres, perturb(sc.spheres, 0, 0.0, 0.05, 0.12),
+                   camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov,
+                          1.0))}
+    for name, (truth, pert, cam) in cases.items():
+        truth = Spheres(*(t.to(cam.origin.device) for t in truth))
+        pert = Spheres(*(t.to(cam.origin.device) for t in pert))
+        f = make_render_pallas_diff(n, n, max_depth=SLAB_GRAD_DEPTH)
+        with torch.no_grad():
+            target = f(truth, cam)
+        sph = Spheres(*(t.detach().clone().requires_grad_(True)
+                        for t in pert))
+        img = f(sph, cam)
+        lu = ((img - target) ** 2).sum()
+        lu.backward()
+        step = make_train_step_pallas(
+            RayMesh(0, SLABS, None, cam.origin.device), n, n,
+            max_depth=SLAB_GRAD_DEPTH)
+        ls, gs = step.loss_and_grads(pert, cam, target)
+        # the pixels whose banded path differs from the unsharded one
+        fb = make_render_pallas_diff(n, rows, max_depth=SLAB_GRAD_DEPTH)
+        with torch.no_grad():
+            bands = torch.cat([fb(pert, band_camera(cam, float(r * rows),
+                                                    rows, n))
+                               for r in range(SLABS)])
+        moved = float(((bands - img.detach()).abs().amax(-1) > 1e-3)
+                      .float().mean())
+        gaps = [float(((a - b.grad).abs() / (SLAB_GRAD_ATOL + SLAB_GRAD_RTOL
+                                             * b.grad.abs())).max())
+                for a, b in zip(gs, sph)]
+        lu = lu.detach()
+        out[f"{name}_slab_loss_rel"] = float((ls - lu).abs() / lu.abs())
+        out[f"{name}_slab_grad_share_of_tol"] = gaps
+        out[f"{name}_moved_pixel_share"] = moved
+        if name == "toy":
+            _close("the toy scene's slab loss", ls, lu, SLAB_LOSS_RTOL)
+            for w, a, b in zip(("centre", "radius", "colour"), gs, sph):
+                _close(f"the toy scene's slab {w} gradient", a, b.grad,
+                       SLAB_GRAD_RTOL, SLAB_GRAD_ATOL)
+    return out
+
+
+def _brute_and_checkpoints(port) -> dict:
+    """``recover`` over the all-pairs oracle, resumed from a checkpoint
+    after step 2, against an uninterrupted run; ``--mode brute_matmul``
+    against ``brute``."""
+    import tempfile
+    import torch
+    from raytracers_tpu_torch.geometry import camera
+    from raytracers_tpu_torch.grad.inverse import recover
+    from raytracers_tpu_torch.parallel.mesh import ray_mesh
+    from raytracers_tpu_torch.render.api import prepare_scene, render, \
+        render_float
+    sc = port.scenes.by_name("rgbbox")
+    n, d = BRUTE_SIZE, BRUTE_DEPTH
+    cam = camera(sc.look_from, sc.look_at, (0.0, 1.0, 0.0), sc.fov, 1.0)
+    prep = prepare_scene(sc, n, n, with_bvh=False)
+    target = render_float(prep, n, n, mode="brute", max_depth=d)
+    init = sc.spheres._replace(color=(sc.spheres.color + 0.2).clamp(0, 1))
+    mesh = ray_mesh()
+    kw = dict(lr=5e-2, max_depth=d)
+    whole, resumed = [], []
+    recover(target, cam, init, mesh, steps=BRUTE_STEPS,
+            callback=lambda i, l, s: whole.append(l), **kw)
+    with tempfile.TemporaryDirectory() as ckdir:
+        recover(target, cam, init, mesh, steps=2, checkpoint_dir=ckdir,
+                checkpoint_every=1, **kw)
+        recover(target, cam, init, mesh, steps=BRUTE_STEPS,
+                checkpoint_dir=ckdir,
+                callback=lambda i, l, s: resumed.append(l), **kw)
+    if len(resumed) != BRUTE_STEPS - 2:
+        raise SmokeError(f"the resumed fit ran {len(resumed)} steps")
+    resume_rel = _close("the resumed fit's losses", torch.tensor(resumed),
+                        torch.tensor(whole[2:]), 1e-5)
+    a = render(prep, n, n, mode="brute")
+    b = render(prep, n, n, mode="brute_matmul")
+    frac = float((a != b).float().mean())
+    if frac >= 0.01:
+        raise SmokeError(f"brute_matmul differs from brute on {frac:.4f} of "
+                         "the pixels")
+    return dict(brute_losses=whole, resumed_losses=resumed,
+                resume_rel=resume_rel, matmul_pixel_share=frac)
+
+
+def phase_train(port, fb_results) -> dict:
+    """Phase 11: the trainer (``[train]`` lines)."""
+    fb = next(r for r in fb_results if r["scene"] == "rgbbox")
+    t0 = time.perf_counter()
+    res = dict(card=_smi(), **_train_one_rank(port, fb))
+    log(f"[train] {res['card']}: rgbbox {SIZE}x{SIZE} d{DEPTH} one-rank "
+        f"NCCL step: train_step_ms {res['train_step_ms_mean']:.3f} "
+        f"(rounds {res['train_step_ms']}), fwdbwd_ms "
+        f"{res['fwdbwd_ms_mean']:.3f}; the all-reduce, Adam and the clamps "
+        f"{res['step_minus_fwdbwd_ms']:.3f} ms; K1d {res['k1d_launches']} "
+        f"and K2 {res['k2_launches']} launches a step; losses "
+        f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}")
+    res.update(_four_slabs(port))
+    log(f"[train] {SLABS} slabs: rgbbox and irreg {SIZE}x{SIZE} d{DEPTH} "
+        f"bit-equal to render(mode='pallas'); at {SLAB_GRAD_SIZE}^2 "
+        f"d{SLAB_GRAD_DEPTH} against the unsharded engine, the toy scene's "
+        f"loss {res['toy_slab_loss_rel']:.2e} and gradients "
+        f"{res['toy_slab_grad_share_of_tol']} of their tolerances "
+        f"(held); rgbbox's loss {res['rgbbox_slab_loss_rel']:.2e} and "
+        f"gradients {res['rgbbox_slab_grad_share_of_tol']} of them, with "
+        f"{res['rgbbox_moved_pixel_share']:.5f} of its pixels on another "
+        "path (printed)")
+    res.update(_brute_and_checkpoints(port))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[train] {json.dumps(res)}")
+    return res
+
+
 def _kernels_record(checkers, diff_checkers, results, fb_results,
-                    k3_checkers, k3_results, k1f, probes) -> list:
+                    k3_checkers, k3_results, k1f, probes, train) -> list:
     """One entry per kernel and scene: K1 from the render main path, K1d
     and K2 from the fwd+bwd main path, K3 from the BVH main path, K1f's
-    modes from phase 9's cells and its W = 64 fwd+bwd steps;
+    modes from phase 9's cells and its W = 64 fwd+bwd steps, K1d and K2
+    of the train step (phase 11) with its launches and phase 6's times;
     ``max_abs_err`` from the kernel against plain checks (K2's includes
     its slot tables)."""
     from raytracers_tpu_torch.render import _cuda
@@ -2153,6 +2475,25 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
             ms=r["k2_ms"], plain_ms=r["plain_k2_ms"],
             bound_ms=r["k2_bound_ms"], bound_by=r["k2_bound_by"],
             library_ms=r["k2_library_ms"]))
+    # the trainer's step runs phase 6's rgbbox launches (the same engine,
+    # config and scene), whose times, bounds and checks stand for it
+    fb = next(r for r in fb_results if r["scene"] == "rgbbox")
+    k1, k2 = diff_checkers["rgbbox"]
+    for kind, src_key, replaces, chk in (
+            ("K1d", "megakernel",
+             "raytracers_tpu/render/pallas_kernel.py:934", k1),
+            ("K2", "replay_bwd",
+             "raytracers_tpu/grad/pallas_replay_bwd.py:104", k2)):
+        key = kind.lower()
+        out.append(dict(
+            name=(f"{kind} in the train step (rgbbox {where}, one-rank "
+                  "NCCL mesh)"),
+            route="cuda", source=src[src_key], replaces=replaces,
+            launches=train[f"{key}_launches"], max_abs_err=chk.max_abs_err,
+            ms=fb[f"{key}_ms"], plain_ms=fb[f"plain_{key}_ms"],
+            bound_ms=fb[f"{key}_bound_ms"], bound_by=fb[f"{key}_bound_by"],
+            library_ms=fb["k2_library_ms"] if kind == "K2" else None,
+            times_from="fwdbwd rgbbox"))
     from raytracers_tpu_torch.probes.microbench import KERNEL_OF, REPLACES
     for e in probes["entries"]:
         out.append(dict(
@@ -2189,12 +2530,13 @@ def main() -> int:
         k3_results = phase_bvh_main(port, k3_checkers)
         k1f = phase_k1f(port)
         probes = phase_probes()
+        train = phase_train(port, fb_results)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": _kernels_record(
         checkers, diff_checkers, results, fb_results, k3_checkers,
-        k3_results, k1f, probes)}))
+        k3_results, k1f, probes, train)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

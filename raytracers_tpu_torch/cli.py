@@ -3,10 +3,16 @@
 Counterpart of ``raytracers_tpu.cli``.  Flags mirror the reference drivers
 (futhark/main.c:34-57): ``-m height -n width -f out.ppm -s rgbbox|irreg
 -r runs``, with ``--mode``, ``--leaf-size``, ``--depth``, ``--chunk``,
-``--cpu`` and ``--validate``.  It renders on the CUDA card, or with
-``--cpu`` through the plain PyTorch versions on the host:
+``--cpu``, ``--shard`` and ``--validate``.  It renders on the CUDA card, or
+with ``--cpu`` through the plain PyTorch versions on the host:
 
     python -m raytracers_tpu_torch.cli -m 200 -n 200 -s irreg -f out.ppm
+
+``--shard`` renders over the ray mesh (``parallel/mesh.py``): under
+``torchrun``, over its process group, one card a process, and rank 0
+prints and writes the image; alone, over a one-rank mesh:
+
+    torchrun --nproc-per-node N -m raytracers_tpu_torch.cli --shard -s irreg
 
 Output protocol of the reference driver:
     Using scene <s> (-s to switch).
@@ -22,8 +28,8 @@ import time
 
 # options of the JAX package's driver whose paths the port has not taken
 _NOT_PORTED = {
-    "shard": "ROADMAP queue 1, item 11 (sharding and inverse rendering)",
-    "native": "ROADMAP queue 1, item 12 (the native-oracle loader)",
+    "native": "ROADMAP queue 1, item B, once item 12 (the native-oracle "
+              "loader)",
 }
 
 
@@ -42,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-r", dest="runs", type=int, default=10,
                    help="timed runs per phase (reference -r)")
     p.add_argument("--mode", default="pallas",
-                   choices=["bvh", "brute", "pallas"],
+                   choices=["bvh", "brute", "brute_matmul", "pallas"],
                    help="closest-hit engine (default: pallas, the "
                         "megakernel)")
     p.add_argument("--leaf-size", type=int, default=8,
@@ -55,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch versions on the host")
     p.add_argument("--shard", action="store_true",
-                   help="not ported: " + _NOT_PORTED["shard"])
+                   help="shard rays over the process group's ranks "
+                        "(torchrun), or over one rank")
     p.add_argument("--native", action="store_true",
                    help="not ported: " + _NOT_PORTED["native"])
     p.add_argument("--validate", action="store_true",
@@ -92,6 +99,8 @@ def main(argv=None) -> int:
     from . import scenes
     from .bvh.lbvh import build_bvh
     from .image import write_image
+    from .parallel.distributed import init
+    from .parallel.mesh import ray_mesh, render_sharded
     from .render.api import prepare_scene, render
     from .utils.platform import resolve_device
     from .utils.validate import validate_bvh, validate_spheres
@@ -107,6 +116,16 @@ def main(argv=None) -> int:
         # (futhark/main.c:78-81), not a traceback
         print(e, file=sys.stderr)
         return 1
+    mesh = None
+    if args.shard:
+        init(device=device)
+        mesh = ray_mesh(device=device)
+    lead = mesh is None or mesh.rank == 0       # the rank that reports
+
+    def say(msg, file=sys.stdout):
+        if lead:
+            print(msg, file=file)
+
     if args.validate:
         problems = validate_spheres(scene.spheres) + validate_bvh(
             build_bvh(scene.spheres, leaf_size=args.leaf_size))
@@ -114,9 +133,9 @@ def main(argv=None) -> int:
             print("VALIDATION FAILED:", *problems, sep="\n  ",
                   file=sys.stderr)
             return 2
-        print("validation: scene and BVH invariants OK", file=sys.stderr)
-    print(f"Using scene {args.scene} (-s to switch).")
-    print(f"Timing over average of {args.runs} runs (-r to change).")
+        say("validation: scene and BVH invariants OK", file=sys.stderr)
+    say(f"Using scene {args.scene} (-s to switch).")
+    say(f"Timing over average of {args.runs} runs (-r to change).")
 
     def prepare():
         return prepare_scene(scene, args.height, args.width,
@@ -125,26 +144,30 @@ def main(argv=None) -> int:
                              device=device)
 
     bvh_s = _seconds(prepare, device, args.runs)
-    print(f"Scene BVH construction in {bvh_s:f}s.")
+    say(f"Scene BVH construction in {bvh_s:f}s.")
     prep = prepare()
 
     def draw():
+        if mesh is not None:
+            return render_sharded(prep, args.height, args.width, mesh=mesh,
+                                  mode=args.mode, max_depth=args.depth)
         return render(prep, args.height, args.width, mode=args.mode,
                       max_depth=args.depth, chunk=args.chunk)
 
     render_s = _seconds(draw, device, args.runs)
-    print(f"Rendering in {render_s:f}s.")
+    say(f"Rendering in {render_s:f}s.")
     rays = args.width * args.height / render_s
-    print(f"({rays / 1e6:.1f} Mrays/s on {device.type})", file=sys.stderr)
+    say(f"({rays / 1e6:.1f} Mrays/s on {device.type}"
+        + (f", {mesh.size} ranks)" if mesh is not None else ")"),
+        file=sys.stderr)
     img = draw()
 
     if args.imgfile is None:
-        print("-f not passed, so not writing image to file")
-    else:
-        print(f"Writing image to {args.imgfile}.")
+        say("-f not passed, so not writing image to file")
+    elif lead:
+        say(f"Writing image to {args.imgfile}.")
         write_image(args.imgfile, img)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

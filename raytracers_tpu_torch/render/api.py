@@ -46,14 +46,16 @@ def prepare_scene(scene: Scene, height: int, width: int,
 
 
 def _oracle(prepared: PreparedScene, mode: str):
-    """The tracer's closest-hit function of ``mode`` "bvh" or "brute"."""
+    """The tracer's closest-hit function of ``mode`` "bvh", "brute" or
+    "brute_matmul"."""
     if mode == "bvh":
         if prepared.bvh is None:
             raise ValueError("prepare_scene(..., with_bvh=True) required "
                              "for mode='bvh'")
         return traverse.make_closest_hit(prepared.bvh)
-    if mode == "brute":
-        return bruteforce.make_closest_hit(prepared.spheres)
+    if mode in ("brute", "brute_matmul"):
+        formulation = "precise" if mode == "brute" else "matmul"
+        return bruteforce.make_closest_hit(prepared.spheres, formulation)
     raise ValueError(f"unknown render mode: {mode}")
 
 
@@ -115,8 +117,9 @@ def render(prepared: PreparedScene, height: int, width: int,
     scene-scale layouts (C > 128) through the two-level cull; ``schedule``
     (or the single boundary ``phase1_depth``) overrides the class's
     compaction schedule of deep renders.  ``mode="bvh"`` is the tracer
-    over the skip-link walk, ``mode="brute"`` the all-pairs tracer;
-    ``chunk`` bounds their batch of rays."""
+    over the skip-link walk, ``mode="brute"`` the all-pairs tracer and
+    ``mode="brute_matmul"`` its matrix-product formulation; ``chunk``
+    bounds their batch of rays."""
     if mode == "pallas":
         return _render_pallas(prepared, height, width, max_depth, False,
                               phase1_depth, schedule)

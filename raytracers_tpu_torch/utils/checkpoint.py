@@ -1,11 +1,13 @@
-"""BVH caching and sphere checkpoints as .npz files.
+"""BVH caching, sphere and train-state checkpoints as .npz files.
 
 Counterpart of ``raytracers_tpu.utils.checkpoint`` in the same npz fields,
 so a file written by either package loads in the other: a built LBVH
 (``save_bvh`` / ``load_bvh``) skips the Morton sort and tree build on
 reload; ``save_spheres`` / ``load_spheres`` keep inverse-rendering scene
-parameters with a step and extra scalars.  Loads go to ``device`` (default:
-the CUDA card).
+parameters with a step and extra scalars; ``save_train_state`` /
+``load_train_state`` keep a fit's spheres and Adam moments, so a fit
+checkpointed by either package resumes in the other.  Loads go to
+``device`` (default: the CUDA card), or to the template's tensors.
 """
 from __future__ import annotations
 
@@ -73,6 +75,29 @@ def load_spheres(path: str, device=None) -> tuple[Spheres, int, dict]:
                             for f in ("center", "radius", "color")))
         extra = {k[2:]: z[k] for k in z.files if k.startswith("x_")}
         return spheres, int(z["step"]), extra
+
+
+def save_train_state(path: str, state, step: int = 0,
+                     loss: float = float("nan")) -> None:
+    """Checkpoint a ``grad.inverse.InverseState`` as the JAX package saves
+    its ``InverseState``: its leaves as ``leaf_0``... in JAX's leaf order
+    (``InverseState.leaves``), then ``step`` and ``loss``."""
+    arrays = {f"leaf_{i}": _np(x) for i, x in enumerate(state.leaves())}
+    arrays["step"] = np.asarray(step)
+    arrays["loss"] = np.asarray(loss, np.float64)
+    np.savez_compressed(_npz_path(path), **arrays)
+
+
+def load_train_state(path: str, like) -> tuple[object, int, float]:
+    """Restore a training state saved by either package's
+    ``save_train_state`` into ``like``, an ``InverseState`` over an Adam
+    optimizer, in place.  Returns (like, step, loss at save: nan for old
+    checkpoints)."""
+    with np.load(_npz_path(path)) as z:
+        n = len(like.leaves())
+        like.load_leaves([z[f"leaf_{i}"] for i in range(n)])
+        loss = float(z["loss"]) if "loss" in z.files else float("nan")
+        return like, int(z["step"]), loss
 
 
 def latest_checkpoint(directory: str, prefix: str = "ckpt_") -> str | None:

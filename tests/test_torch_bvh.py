@@ -492,7 +492,7 @@ def _run(args):
         capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
 
 
-@pytest.mark.parametrize("mode", ["bvh", "brute"])
+@pytest.mark.parametrize("mode", ["bvh", "brute", "brute_matmul"])
 def test_cli_renders_ppm(tmp_path, mode):
     out = tmp_path / "out.ppm"
     r = _run(["-m", "24", "-n", "32", "-s", "rgbbox", "-r", "1", "--cpu",
@@ -511,10 +511,21 @@ def test_cli_renders_ppm(tmp_path, mode):
         img, tapi.render(prep, 24, 32, mode=mode, max_depth=4).numpy())
 
 
-def test_cli_unknown_scene_and_not_ported_flags():
+def test_cli_unknown_scene_and_not_ported_flags(tmp_path):
     r = _run(["-s", "nope", "--cpu", "-r", "1"])
     assert r.returncode != 0 and "Unknown scene" in r.stderr + r.stdout
-    for flag, item in (("--shard", "item 11"), ("--native", "item 12")):
-        r = _run([flag, "--cpu", "-r", "1"])
-        assert r.returncode != 0 and item in r.stderr, r.stderr
-        assert "Rendering" not in r.stdout
+    r = _run(["--native", "--cpu", "-r", "1"])
+    assert r.returncode != 0 and "item 12" in r.stderr, r.stderr
+    assert "Rendering" not in r.stdout
+    # --shard renders over a one-rank mesh the unsharded image
+    # (tests/test_sharding.py:127)
+    out = tmp_path / "shard.ppm"
+    r = _run(["--shard", "-m", "24", "-n", "32", "-s", "rgbbox", "-r", "1",
+              "--cpu", "--mode", "pallas", "--depth", "2", "-f", str(out)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.splitlines()[3].startswith("Rendering in ")
+    prep = tapi.prepare_scene(tscenes.rgbbox(device=CPU), 24, 32,
+                              with_pallas=True, device=CPU)
+    np.testing.assert_array_equal(
+        read_ppm(str(out)),
+        tapi.render(prep, 24, 32, mode="pallas", max_depth=2).numpy())
