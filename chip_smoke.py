@@ -36,6 +36,15 @@ a failed phase exits non-zero before the final line:
    counts on the records); the replayed colours of K2 (``emit_fwd``)
    bit-equal to K1d's at the full depth;
 4. goldens: ``render(mode="pallas")`` at 200x200 against ``tests/golden``;
+   then the native oracle (``native/raytracer.cpp``), built by the port's
+   loader (``raytracers_tpu_torch/native.py``) on this host (``[native]``
+   lines): the six goldens reproduced bit for bit at 200x200;
+   ``render(mode="pallas")`` on the card at 1000x1000 against it, depth 50
+   within the scene's golden tolerances, and at depth 1 every differing
+   pixel explained by ``native.explain_depth1`` (a grazing hit or a sky
+   colour at a quantization step, on rays a few ulps apart), else the run
+   fails; the oracle's render times on the host CPU, named, printed after
+   phase 5 beside the card's ``render_ms``;
 5. main path, render, for each cell: launches counted from zero around one
    render (and by route), render times with CUDA events, per-phase K1 times
    on both routes in turns (the route rule's route, the other, the other,
@@ -47,7 +56,11 @@ a failed phase exits non-zero before the final line:
    ``prepare_scene`` + ``render(mode="pallas")`` at 1000x1000, depth 50;
    the 1M-sphere soup through ``build_pallas_scene`` + ``render_pallas``
    at 256x256, depth 5, tile 2048, blocks (8, 256), as ``bench.py``
-   renders it (the camera at (0, 0, 520) looking at the origin, fov 60);
+   renders it (the camera at (0, 0, 520) looking at the origin, fov 60).
+   Then one rgbbox render under ``utils.profiling.device_trace``
+   (``[profile]``): ``device_kernel_ms`` of the exported Chrome trace equal
+   to the per-kernel sums of the same session's device events, the
+   per-kernel times beside the card's name and power limit;
 6. main path, fwd+bwd: ``make_render_pallas_diff`` at 1000x1000, depth 50,
    with the scene's ``pallas_diff_config``, then ``loss.backward()`` for
    ``loss = (f(spheres, cam) ** 2).sum()``: launches counted from zero
@@ -58,7 +71,12 @@ a failed phase exits non-zero before the final line:
    the card; per K2 segment (``K2 segment`` lines) its time, bounces, atomic
    row-adds (the model's, equal to the kernel's counters on the same
    inputs), conflict factor (bounces per row-add) and ``index_add_``'s
-   time;
+   time.  Then ``examples/pallas_gradients.py``'s port as a user runs it
+   (``[example]`` lines), at its defaults (64x64, depth 8) and at
+   1000x1000, depth 50: launches counted from zero around one run (K1d
+   and K2 once each, its engine being one segment), finite loss and
+   gradients, the run's host seconds, and at the defaults the gradients
+   against the plain engine on the card within this phase's bound;
 7. the BVH path against its plain versions: ``build_bvh`` on the card
    field for field equal to the CPU build (rgbbox, irreg and plane at leaf
    8, the 1M-sphere soup of ``bench.py`` at leaf 128 and 8),
@@ -191,65 +209,39 @@ CELLS = {"rgbbox": (SIZE, DEPTH), "irreg": (SIZE, DEPTH),
 SOUP_CONFIG = (2048, (8, 256), (), None)    # bench.py's tile and blocks
 WARP = 32
 
-# H100 SXM published peaks at a 700 W power limit: 67 TFLOP/s float32
-# outside the tensor cores, i.e. 33.5e12 lane operations a second with a
-# fused multiply-add counted as 2 flops; 3.35 TB/s of HBM.
-FP32_LANE_OPS_PER_S = 67e12 / 2
-HBM_BYTES_PER_S = 3.35e12
-# An IEEE square root and an IEEE division (the kernels build with
-# -prec-sqrt=true -prec-div=true and divide as 1.0f / x) in multiply-
-# equivalents: M1's uncontracted FMUL + FADD lane-op rate over the
-# operation's rate at 8 streams (probes/microbench.py; the record
-# docs/MICROBENCH_H100.json, NVIDIA H100 80GB HBM3, 700.00 W).  The bounds
-# charge each at that weight; phase 1 prints the run's own measurement.
-SQRT_OPS = 8.78
-DIV_OPS = 8.71
-
-
-def _ops(plain: int, sqrt: int = 0, div: int = 0) -> float:
-    """Lane operations of a unit of work: its plain float32 operations,
-    and its square roots and divisions at M1's weights."""
-    return plain + sqrt * SQRT_OPS + div * DIV_OPS
-
-
-# K1's lane operations per unit of counted work, broken down in
-# csrc/megakernel.cu's header
-OPS_PER_SLOT = _ops(29, sqrt=1)         # one (ray, sphere) test of the visit
-OPS_PER_SLOT_NEAR = _ops(26, sqrt=1)    # the same, near root (far_root=False)
-OPS_PER_CULL_ROW = _ops(48)             # one AABB slab test
-OPS_PER_GATE = _ops(3)                  # the occlusion gate, once a visit
-OPS_PER_BOUNCE = _ops(19, sqrt=1, div=4)   # every bounce: one to the sky
-OPS_PER_HIT = _ops(53, sqrt=1, div=2)   # more for one that hits (72, 2, 6)
-OPS_PER_MIRROR = _ops(3)                # more for a mirror bounce's light
-STATE_BYTES = 13 * 4            # the ray state a phase reads or writes
-# K2's lane operations per replayed step, counted in csrc/replay_bwd.cu and
-# csrc/ray_math.cuh: a bounce replayed in pass 1 (104 and 3 square roots, 3
-# divisions) and replayed and reversed in pass 2 (247, 3, 4), or a step
-# that ends the path (a miss: its colour, then the carry's seed; 61, 2, 2)
-OPS_PER_K2_BOUNCE = _ops(351, sqrt=6, div=7)
-OPS_PER_K2_END = _ops(61, sqrt=2, div=2)
-K2_SCRATCH_BYTES = 2 * 9 * 4    # o, d, light of a step, written and read
+# the card's peaks and the kernels' operation counts, which every bound of
+# the port reads (raytracers_tpu_torch/utils/profiling.py)
+sys.path.insert(0, str(ROOT))
+from raytracers_tpu_torch.utils.profiling import (  # noqa: E402
+    DIV_OPS, FP32_LANE_OPS_PER_S, HBM_BYTES_PER_S, K2_SCRATCH_BYTES, K3_OPS,
+    OPS_PER_BOUNCE, OPS_PER_CULL_ROW, OPS_PER_GATE, OPS_PER_HIT,
+    OPS_PER_K2_BOUNCE, OPS_PER_K2_END, OPS_PER_MIRROR, OPS_PER_SLOT,
+    OPS_PER_SLOT_NEAR, PAY_BYTES, SQRT_OPS, STATE_BYTES,
+    device_profile)
 K2_STATUS = ("redesigned: a warp-uniform backward sweep, each warp's "
              "bounces on one slot summed in registers before one atomic "
              "row-add")
-PAY_BYTES = 28                  # the winner's 7 fields, at a bounce
 F32_EPS = 2.0 ** -24            # float32 unit roundoff
 # float32 atomic adds flush subnormal operands and results to zero: each
 # add of a slot table may lose up to twice the smallest normal, 2^-125
 F32_FTZ = 2.0 ** -125
 
-# K3's lane operations per unit of counted work, with their breakdown in
-# csrc/traversal.cu's header: an inner-node slab test, a sphere slot tested,
-# one with a positive discriminant, a far root tried, a bounce that hits, one
-# that ends on the sky, and a ray's primary direction and packing
-K3_OPS = dict(node_steps=_ops(39), slot_tests=_ops(21),
-              slot_roots=_ops(5, sqrt=1), far_roots=_ops(5),
-              hit_bounces=_ops(73, sqrt=2, div=6),
-              sky_bounces=_ops(22, sqrt=1, div=5), rays=_ops(27))
 # the BVH build's soup (bench.py:249-267) and its leaf sizes
 BVH_SOUP, BVH_LEAVES = (1_000_000, 0), (128, 8)
 K3_GLOBAL = "soup14k"           # K3's scene on the global-memory path
 
+# the goldens the native oracle reproduces bit for bit (phase 4), and its
+# timed renders a scene at SIZE, DEPTH
+NATIVE_GOLDENS = (("rgbbox", 1, "rgbbox_200_d1.ppm"),
+                  ("rgbbox", 2, "rgbbox_200_d2.ppm"),
+                  ("rgbbox", 4, "rgbbox_200_d4.ppm"),
+                  ("rgbbox", 8, "rgbbox_200_d8.ppm"),
+                  ("rgbbox", DEPTH, "rgbbox_200.ppm"),
+                  ("irreg", DEPTH, "irreg_200.ppm"))
+NATIVE_RUNS = 3
+# more differing depth-1 pixels than this is a fault, not rounding (the CPU
+# run of the plain version: 13 and 4 of 10^6); each is classified alone
+NATIVE_MAX_DEPTH1_PIXELS = 1000
 GOLDENS = (("rgbbox", 1, "rgbbox_200_d1.ppm", 0.0, 0.0),
            ("rgbbox", DEPTH, "rgbbox_200.ppm", 0.15, 6.0),
            ("irreg", DEPTH, "irreg_200.ppm", 0.02, 0.5))
@@ -835,7 +827,12 @@ def _golden_check(what: str, img, fname: str, max_mis: float,
         raise SmokeError(f"{what}: golden {fname} out of tolerance")
 
 
-def phase_goldens(port) -> None:
+def phase_goldens(port) -> dict:
+    """Phase 4: the port's render against the goldens, then the native
+    oracle, built by the port's loader on this host: the six goldens bit
+    for bit, the card's 1000x1000 renders against it (depth 50 within the
+    golden tolerances, every depth-1 pixel that differs explained), and its
+    render times.  Returns the oracle's ms a render by scene."""
     from raytracers_tpu_torch.render.api import render
     preps = {}
     for name, depth, fname, max_mis, max_delta in GOLDENS:
@@ -845,42 +842,87 @@ def phase_goldens(port) -> None:
                      max_depth=depth)
         _golden_check("render(mode='pallas')", img, fname, max_mis,
                       max_delta)
+    return _native_oracle(port)
 
 
-def _device_profile(fn) -> dict | None:
-    """One call of ``fn`` under torch.profiler: device time by kernel name,
-    the device's busy time and the span from its first kernel's start to
-    its last kernel's end.  None where the profiler saw no device kernel."""
+def _native_oracle(port) -> dict:
+    import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        return None
-    kernels.sort(key=lambda e: e.time_range.start)
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy_ms = sum(by_name.values()) / 1e3
-    span_ms = (kernels[-1].time_range.end - kernels[0].time_range.start) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    # idle gaps between consecutive kernels, with the kernels around them
-    gaps = sorted(((b.time_range.start - a.time_range.end) / 1e3,
-                   a.name[:40], b.name[:40])
-                  for a, b in zip(kernels, kernels[1:]))[::-1]
-    k1_gap_ms = sum(g for g, a, b in gaps
-                    if g > 0 and ("megakernel" in a or "megakernel" in b))
-    return dict(device_busy_ms=busy_ms, device_span_ms=span_ms,
-                device_idle_share=1.0 - busy_ms / span_ms,
-                n_kernels=len(kernels),
-                top_kernels_ms=[[name[:60], us / 1e3] for name, us in top],
-                largest_gaps_ms=[list(g) for g in gaps[:5]],
-                gaps_next_to_k1_ms=k1_gap_ms)
+    from raytracers_tpu_torch import native
+    from raytracers_tpu_torch.image import read_ppm
+    from raytracers_tpu_torch.render.api import render
+    t0 = time.perf_counter()
+    try:
+        lib = native.build()
+    except native.NativeUnavailable as e:
+        raise SmokeError(f"the native oracle did not build: {e}") from e
+    cpu = native.host_cpu()
+    log(f"[native] {Path(lib).relative_to(ROOT)}: "
+        f"{' '.join([native.CXX, *native.CXXFLAGS])}, "
+        f"{time.perf_counter() - t0:.2f} s, on the host CPU {cpu}")
+    scenes = {name: port.scenes.by_name(name, device="cpu")
+              for name in SCENES}
+
+    def oracle(name, side, depth):
+        sc = scenes[name]
+        return native.render(sc.spheres, sc.look_from, sc.look_at, sc.fov,
+                             side, side, max_depth=depth)
+
+    for name, depth, fname in NATIVE_GOLDENS:
+        n = int((oracle(name, CHECK_SIZE, depth)
+                 != read_ppm(str(ROOT / "tests" / "golden" / fname))).sum())
+        log(f"[native] golden {fname}: {n} pixels differ")
+        if n:
+            raise SmokeError(f"the native oracle does not reproduce {fname}")
+
+    native_ms = {}
+    for name in SCENES:
+        prep = _prepare(port, name, SIZE)
+        for depth in (1, DEPTH):
+            img = render(prep, SIZE, SIZE, mode="pallas",
+                         max_depth=depth).cpu()
+            nat = oracle(name, SIZE, depth)
+            n, share, delta = _image_gap(img, torch.from_numpy(nat))
+            what = f"{name} {SIZE}x{SIZE} d{depth}"
+            if depth == DEPTH:
+                max_mis, max_delta = _golden_limits(name)
+                log(f"[native] {what}: render(mode='pallas') on the card "
+                    f"differs from the oracle on {n} pixels ({share}, limit "
+                    f"{max_mis}), mean |drgb| {delta} (limit {max_delta})")
+                if share > max_mis or delta > max_delta:
+                    raise SmokeError(f"{what}: out of the golden tolerances "
+                                     "against the native oracle")
+                continue
+            if n > NATIVE_MAX_DEPTH1_PIXELS:
+                raise SmokeError(f"{what}: {n} pixels differ from the "
+                                 f"oracle, more than the "
+                                 f"{NATIVE_MAX_DEPTH1_PIXELS} a few-ulp ray "
+                                 "gap could move")
+            img = img.numpy()
+            found = native.explain_depth1(
+                scenes[name].spheres, prep.cam, SIZE, SIZE,
+                np.argwhere(img != nat), img, nat)
+            kinds = {}
+            for e in found:
+                kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+            log(f"[native] {what}: {n} pixels differ from the oracle, by "
+                f"kind {kinds}; the first: {json.dumps(found[:4])}")
+            bad = [e for e in found if e["kind"] is None]
+            if bad:
+                raise SmokeError(f"{what}: {len(bad)} differing pixels are "
+                                 f"not explained, the first {bad[0]}")
+        sc = scenes[name]
+        bvh_ms, render_ms, img = native.bench(
+            sc.spheres, sc.look_from, sc.look_at, sc.fov, SIZE, SIZE,
+            max_depth=DEPTH, runs=NATIVE_RUNS)
+        if not np.array_equal(img, nat):
+            raise SmokeError(f"{name}: native.bench's image differs from "
+                             "native.render's")
+        native_ms[name] = render_ms
+        log(f"[native] {name} {SIZE}x{SIZE} d{DEPTH}: the oracle renders in "
+            f"{render_ms:.3f} ms (BVH {bvh_ms:.3f} ms), mean of "
+            f"{NATIVE_RUNS}, on the host CPU {cpu}")
+    return native_ms
 
 
 def _k1_ops(stats: dict, ps, hits: int, mirrors: int = 0,
@@ -1002,6 +1044,19 @@ def _dead_launch_ms(mk, ps, cell) -> dict:
     return out
 
 
+def _log_native_beside_card(native_ms: dict, results) -> None:
+    """The native oracle's render times (the host CPU's) beside the card's
+    ``render_ms`` of the same cells."""
+    from raytracers_tpu_torch import native
+    card, cpu = _smi(), native.host_cpu()
+    for r in results:
+        if r["scene"] in native_ms:
+            log(f"[native] {r['scene']} {r['size']}x{r['size']} "
+                f"d{r['depth']}: render_ms {r['render_ms_mean']:.4f} on the "
+                f"card ({card}); the native oracle "
+                f"{native_ms[r['scene']]:.3f} ms on the host CPU ({cpu})")
+
+
 def phase_main_path(port, name: str, checker) -> dict:
     import torch
     from raytracers_tpu_torch.render import megakernel as mk
@@ -1038,7 +1093,7 @@ def phase_main_path(port, name: str, checker) -> dict:
     k1_ms = turns["rule_ms"]
     dead = _dead_launch_ms(mk, ps, cell) if cell.multi_phase else None
 
-    profiled = _device_profile(cell.render)
+    profiled = device_profile(cell.render)
     if profiled is None:
         log(f"[main] {name}: torch.profiler saw no device kernels")
 
@@ -1318,7 +1373,7 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     _log_routes(f"{name} fwd+bwd K1d ({tag})", turns)
     k1d_ms, k2_ms = turns["rule_phase_ms"], t_k2.phase_ms()[::-1]  # by segment
 
-    profiled = _device_profile(step)
+    profiled = device_profile(step)
     if profiled is None:
         log(f"[fwdbwd] {name}: torch.profiler saw no device kernels")
 
@@ -1395,6 +1450,121 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
                camera_grad_rel_err=cam_rel,
                loss=float((img * img).sum()), profile=profiled)
     log(f"[{tag}] {json.dumps(res)}")
+    return res
+
+
+# the example's runs: its defaults, then the main path's side and depth
+EXAMPLE_RUNS = ((64, 8), (SIZE, DEPTH))
+
+
+def phase_example(port) -> list:
+    """``examples/pallas_gradients.py`` as a user runs it on the card
+    (``main``): at its defaults and at SIZE, DEPTH, launches counted from
+    zero around one run (K1d once a phase, K2 once a segment: one each at
+    the example's single-segment engine), the run's host seconds, finite
+    loss and gradients; at the defaults the gradients against the plain
+    engine on the card, within phase 6's summation-order bound."""
+    import torch
+    from raytracers_tpu_torch.examples import pallas_gradients as ex
+    from raytracers_tpu_torch.grad import replay_bwd as rb
+    from raytracers_tpu_torch.render import megakernel as mk
+    out = []
+    for side, depth in EXAMPLE_RUNS:
+        argv = ["--res", str(side), "--depth", str(depth)]
+        ex.main(argv)                                           # warm-up
+        torch.cuda.synchronize()
+        rb.replay_bwd.launches = 0
+        t0 = time.perf_counter()
+        (loss, grads), k1d, routes = _counted(mk, lambda: ex.main(argv))
+        seconds = time.perf_counter() - t0
+        launches = (k1d, rb.replay_bwd.launches)
+        what = f"example {side}x{side} d{depth}"
+        if launches != (1, 1):
+            raise SmokeError(f"{what}: launched K1d and K2 {launches} "
+                             "times, not once each")
+        if not torch.isfinite(loss) or not all(
+                torch.isfinite(g).all() for g in grads.values()):
+            raise SmokeError(f"{what}: the loss or a gradient is not finite")
+        res = dict(side=side, depth=depth, loss=float(loss),
+                   seconds=seconds, k1d_launches=k1d,
+                   k1d_route_launches=routes, k2_launches=launches[1],
+                   grad_max_abs={k: float(g.abs().max())
+                                 for k, g in grads.items()})
+        if (side, depth) == EXAMPLE_RUNS[0]:
+            res.update(_example_vs_plain(ex, mk, side, depth, loss, grads))
+        log(f"[example] {json.dumps(res)}")
+        out.append(res)
+    return out
+
+
+def _example_vs_plain(ex, mk, side, depth, loss, grads) -> dict:
+    """The example's loss and gradients against the plain engine's (K1d's
+    and K2's plain versions on the card): the loss equal, the sphere
+    gradients within ``_sphere_grad_check``'s bound, the camera origin's
+    within 1e-6 of its largest magnitude, as phase 6 holds them."""
+    from raytracers_tpu_torch.render.megakernel import build_pallas_scene
+    ps = build_pallas_scene(ex.scenes.rgbbox().spheres)  # the engine's
+    p_k2 = PlainK2(ps.order.numel(), lambda fn, *a, **kw: fn(*a, **kw))
+    p_loss, plain = ex.gradients(side, depth,
+                                 fwd_kernel=mk.megakernel_reference,
+                                 bwd_kernel=p_k2)
+    what = f"example {side}x{side} d{depth}"
+    if float(loss) != float(p_loss):
+        raise SmokeError(f"{what}: loss {float(loss)} against the plain "
+                         f"engine's {float(p_loss)}")
+    keys = ("center", "radius", "color")
+    err, bound, want = _sphere_grad_check(
+        what, ps, p_k2, 1, [grads[k] for k in keys], [plain[k] for k in keys])
+    cam_rel = float((grads["origin"] - plain["origin"]).abs().max()
+                    / plain["origin"].abs().max())
+    if cam_rel > 1e-6:
+        raise SmokeError(f"{what}: the camera origin's gradient differs from "
+                         f"the plain engine's by {cam_rel} of its max")
+    share = err / bound.clamp(min=1e-300)
+    return dict(sphere_grad_max_abs_err=float(err.max()),
+                sphere_grad_err_share_of_bound=float(share.max()),
+                camera_origin_grad_rel_err=cam_rel)
+
+
+def phase_profiling(port) -> dict:
+    """One main-path render (rgbbox) under ``utils.profiling.device_trace``:
+    ``device_kernel_ms`` of the exported trace against the per-kernel sums
+    of the same session's device events, to the trace's microsecond
+    rounding a kernel; the session's other device events must be copies
+    and sets.  The per-kernel times are printed beside the card's name and
+    power limit."""
+    import shutil
+    from raytracers_tpu_torch.utils.profiling import (device_events,
+                                                      device_kernel_ms,
+                                                      device_trace)
+    cell = _cell(port, "rgbbox")
+    cell.render()                                               # warm-up
+    trace_dir = ROOT / "build" / "traces"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with device_trace(str(trace_dir)) as prof:
+        cell.render()
+    from_trace = device_kernel_ms(str(trace_dir))
+    events, counts = {}, {}
+    for e in device_events(prof):
+        events[e.name] = events.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        counts[e.name] = counts.get(e.name, 0) + 1
+    if not from_trace:
+        raise SmokeError("the exported trace holds no device kernel")
+    for name, ms in from_trace.items():
+        if name not in events or abs(ms - events[name]) > counts[name] * 1e-3:
+            raise SmokeError(f"kernel {name[:80]}: {ms} ms in the trace, "
+                             f"{events.get(name)} ms in the session's events")
+    others = {n: ms for n, ms in events.items() if n not in from_trace}
+    if any(not n.startswith(("Memcpy", "Memset")) for n in others):
+        raise SmokeError(f"device events missing from the trace's kernels: "
+                         f"{sorted(others)[:5]}")
+    res = dict(card=_smi(), scene=cell.name, size=cell.size,
+               depth=cell.depth, trace_files=len(list(trace_dir.iterdir())),
+               kernel_ms={n[:60]: ms for n, ms in sorted(
+                   from_trace.items(), key=lambda kv: -kv[1])},
+               kernel_ms_total=sum(from_trace.values()),
+               copies_and_sets_ms=others)
+    log(f"[profile] {json.dumps(res)}")
     return res
 
 
@@ -2176,7 +2346,7 @@ def _train_one_rank(port, fb) -> dict:
             raise SmokeError("a masked parameter moved")
         ms = [cuda_ms(lambda: step(state, cam, target), warmup=0,
                       runs=FB_REPEATS) for _ in range(3)]
-        profile = _device_profile(lambda: step(state, cam, target))
+        profile = device_profile(lambda: step(state, cam, target))
 
         # one rank: its loss and gradients against the plain engine's (K1d's
         # and K2's plain versions on the card) and the unsharded kernel
@@ -2522,10 +2692,13 @@ def main() -> int:
         checkers = phase_kernel_vs_plain(port)
         checkers.update(phase_scene_scale_vs_plain(port))
         diff_checkers = phase_diff_kernels_vs_plain(port)
-        phase_goldens(port)
+        native_ms = phase_goldens(port)
         results = [phase_main_path(port, name, checkers[name])
                    for name in CELLS]
+        _log_native_beside_card(native_ms, results)
+        phase_profiling(port)
         fb_results = [phase_fwdbwd(port, name) for name in SCENES]
+        phase_example(port)
         k3_checkers = phase_bvh_vs_plain(port)
         k3_results = phase_bvh_main(port, k3_checkers)
         k1f = phase_k1f(port)

@@ -3,8 +3,10 @@
 Counterpart of ``raytracers_tpu.cli``.  Flags mirror the reference drivers
 (futhark/main.c:34-57): ``-m height -n width -f out.ppm -s rgbbox|irreg
 -r runs``, with ``--mode``, ``--leaf-size``, ``--depth``, ``--chunk``,
-``--cpu``, ``--shard`` and ``--validate``.  It renders on the CUDA card, or
-with ``--cpu`` through the plain PyTorch versions on the host:
+``--cpu``, ``--shard``, ``--native`` and ``--validate``.  It renders on the
+CUDA card, or with ``--cpu`` through the plain PyTorch versions on the host,
+or with ``--native`` through the native C++ renderer on the host CPU
+(``native.py``, which builds it at first use):
 
     python -m raytracers_tpu_torch.cli -m 200 -n 200 -s irreg -f out.ppm
 
@@ -24,13 +26,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
-
-# options of the JAX package's driver whose paths the port has not taken
-_NOT_PORTED = {
-    "native": "ROADMAP queue 1, item B, once item 12 (the native-oracle "
-              "loader)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,37 +59,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard rays over the process group's ranks "
                         "(torchrun), or over one rank")
     p.add_argument("--native", action="store_true",
-                   help="not ported: " + _NOT_PORTED["native"])
+                   help="use the native C++ CPU renderer (built at first "
+                        "use) instead of the port")
     p.add_argument("--validate", action="store_true",
                    help="run BVH/scene invariant checks before rendering")
     return p
 
 
-def _seconds(fn, device, runs: int, warmup: int = 2) -> float:
-    """Average host seconds of ``fn()``, the card drained at both ends."""
-    import torch
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    for _ in range(warmup):
-        fn()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        fn()
-    sync()
-    return (time.perf_counter() - t0) / runs
-
-
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, where in _NOT_PORTED.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag} is not ported to raytracers_tpu_torch "
-                         f"yet: {where}")
 
     from . import scenes
     from .bvh.lbvh import build_bvh
@@ -103,10 +77,12 @@ def main(argv=None) -> int:
     from .parallel.mesh import ray_mesh, render_sharded
     from .render.api import prepare_scene, render
     from .utils.platform import resolve_device
+    from .utils.timing import bench_fn
     from .utils.validate import validate_bvh, validate_spheres
 
     try:
-        device = resolve_device("cpu" if args.cpu else None)
+        # the native renderer is a host program: its scene stays there
+        device = resolve_device("cpu" if args.cpu or args.native else None)
         scene = scenes.by_name(args.scene, device=device)
     except RuntimeError as e:
         print(f"{e} (the --cpu flag)", file=sys.stderr)
@@ -117,7 +93,7 @@ def main(argv=None) -> int:
         print(e, file=sys.stderr)
         return 1
     mesh = None
-    if args.shard:
+    if args.shard and not args.native:
         init(device=device)
         mesh = ray_mesh(device=device)
     lead = mesh is None or mesh.rank == 0       # the rank that reports
@@ -137,30 +113,46 @@ def main(argv=None) -> int:
     say(f"Using scene {args.scene} (-s to switch).")
     say(f"Timing over average of {args.runs} runs (-r to change).")
 
-    def prepare():
-        return prepare_scene(scene, args.height, args.width,
-                             leaf_size=args.leaf_size,
-                             with_pallas=args.mode == "pallas",
-                             device=device)
+    if args.native:
+        from . import native
+        try:
+            bvh_ms, render_ms, img = native.bench(
+                scene.spheres, scene.look_from, scene.look_at, scene.fov,
+                args.width, args.height, max_depth=args.depth,
+                runs=args.runs)
+        except native.NativeUnavailable as e:
+            print(e, file=sys.stderr)
+            return 1
+        say(f"Scene BVH construction in {bvh_ms / 1e3:f}s.")
+        say(f"Rendering in {render_ms / 1e3:f}s.")
+        say(f"(native C++ renderer on the host CPU: {native.host_cpu()})",
+            file=sys.stderr)
+    else:
+        def prepare():
+            return prepare_scene(scene, args.height, args.width,
+                                 leaf_size=args.leaf_size,
+                                 with_pallas=args.mode == "pallas",
+                                 device=device)
 
-    bvh_s = _seconds(prepare, device, args.runs)
-    say(f"Scene BVH construction in {bvh_s:f}s.")
-    prep = prepare()
+        bvh_s = bench_fn(prepare, runs=args.runs)
+        say(f"Scene BVH construction in {bvh_s:f}s.")
+        prep = prepare()
 
-    def draw():
-        if mesh is not None:
-            return render_sharded(prep, args.height, args.width, mesh=mesh,
-                                  mode=args.mode, max_depth=args.depth)
-        return render(prep, args.height, args.width, mode=args.mode,
-                      max_depth=args.depth, chunk=args.chunk)
+        def draw():
+            if mesh is not None:
+                return render_sharded(prep, args.height, args.width,
+                                      mesh=mesh, mode=args.mode,
+                                      max_depth=args.depth)
+            return render(prep, args.height, args.width, mode=args.mode,
+                          max_depth=args.depth, chunk=args.chunk)
 
-    render_s = _seconds(draw, device, args.runs)
-    say(f"Rendering in {render_s:f}s.")
-    rays = args.width * args.height / render_s
-    say(f"({rays / 1e6:.1f} Mrays/s on {device.type}"
-        + (f", {mesh.size} ranks)" if mesh is not None else ")"),
-        file=sys.stderr)
-    img = draw()
+        render_s = bench_fn(draw, runs=args.runs)
+        say(f"Rendering in {render_s:f}s.")
+        rays = args.width * args.height / render_s
+        say(f"({rays / 1e6:.1f} Mrays/s on {device.type}"
+            + (f", {mesh.size} ranks)" if mesh is not None else ")"),
+            file=sys.stderr)
+        img = draw()
 
     if args.imgfile is None:
         say("-f not passed, so not writing image to file")

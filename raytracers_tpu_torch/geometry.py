@@ -58,6 +58,13 @@ def sphere_hit_t(origin, direction, center, radius, t_min, t_max):
     return torch.where(pos, t, INF)
 
 
+def hit_record(t, origin, direction, center, radius, color):
+    """Reconstruct (p, normal, colour) for a known hit t (ray.fut:40-45)."""
+    p = origin + t[..., None] * direction
+    normal = (p - center) * (1.0 / radius)[..., None]
+    return p, normal, color
+
+
 def aabb_hit(box: Aabb, origin, direction, t_min, t_max):
     """Slab test staged like futhark/ray.fut:53-70.  Each stage fails if
     ``tmax <= tmin``; a NaN stage (0 * inf for an axis-parallel ray whose

@@ -51,6 +51,7 @@ import torch
 
 from .. import vec
 from ..utils.platform import resolve_device
+from ..utils.profiling import FP32_LANE_OPS_PER_S, HBM_BYTES_PER_S
 
 F32, I32 = torch.float32, torch.int32
 T, ROWS = 256, 128                # the TPU probes' lane width and rows
@@ -87,12 +88,9 @@ KERNEL_OF = {"M1": "microbench", "M2": "microbench", "M3": "microbench",
              "M7": "microbench_mxuquad"}
 
 # H100 SXM published peaks at a 700 W power limit (NVIDIA's data sheet):
-# 67 TFLOP/s float32 outside the tensor cores (33.5e12 lane operations a
-# second, a fused multiply-add counted as one), 495 TFLOP/s dense TF32,
-# 3.35 TB/s of HBM; 132 SMs
-FP32_LANE_OPS_PER_S = 67e12 / 2
+# FP32_LANE_OPS_PER_S and HBM_BYTES_PER_S (utils/profiling.py), 495 TFLOP/s
+# dense TF32; 132 SMs
 TF32_FLOPS_PER_S = 495e12
-HBM_BYTES_PER_S = 3.35e12
 N_SMS = 132
 
 RECORD = Path(__file__).resolve().parents[2] / "docs" / "MICROBENCH_H100.json"

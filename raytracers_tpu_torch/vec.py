@@ -7,13 +7,25 @@ with the same associativity everywhere so results agree bit for bit:
 * ``dot`` sums left to right, ``(x + y) + z``, as XLA's reduce does;
 * ``sqrt`` is correctly rounded on every device: torch's CPU float32
   ``sqrt`` is not (about 0.7% of inputs differ by an ulp), so it is taken
-  through float64, which rounds back to the correctly rounded float32.
+  through float64, which rounds back to the correctly rounded float32;
+* ``enclosing`` takes ``torch.minimum``/``maximum``, which propagate NaN
+  as XLA's min/max do.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+
+def vec3(x, y, z, dtype=torch.float32):
+    """Build an (..., 3) vector from components (broadcasting), on the
+    device of the first tensor among them (else the host)."""
+    device = next((c.device for c in (x, y, z)
+                   if isinstance(c, torch.Tensor)), None)
+    return torch.stack(torch.broadcast_tensors(
+        *(torch.as_tensor(c, dtype=dtype, device=device) for c in (x, y, z))),
+        dim=-1)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +46,11 @@ def normalise(v):
     return v * (1.0 / norm(v))[..., None]
 
 
+def scale(s, v):
+    """Scalar (...,) times vector (...,3)."""
+    return torch.as_tensor(s, dtype=v.dtype, device=v.device)[..., None] * v
+
+
 def cross(a, b):
     return torch.stack([
         a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
@@ -46,6 +63,11 @@ class Aabb(NamedTuple):
     """Axis-aligned bounding box; both corners are (..., 3) tensors."""
     min: torch.Tensor
     max: torch.Tensor
+
+
+def enclosing(a: Aabb, b: Aabb) -> Aabb:
+    """Smallest AABB containing both (futhark/prim.fut:38-45)."""
+    return Aabb(torch.minimum(a.min, b.min), torch.maximum(a.max, b.max))
 
 
 def centre(box: Aabb):
