@@ -126,17 +126,17 @@ a failed phase exits non-zero before the final line:
    ``probes.microbench.run`` at the TPU probes' sizes, launches counted from
    zero around it: M1's FP32 issue rate (uncontracted and FMA at 8, 4 and
    1 streams) and sqrtf, division and 1/x; M2's pair, pairT and payload
-   products as an FP32 loop, TF32 and 3xTF32 mma.sync (with ``torch.bmm``
-   as the library call); M3's 128-key minimum, serial, shuffled and
-   ``__reduce_min_sync`` (with ``torch.amin``); M4's cluster visit, a
-   thread or a warp per ray at 4k, 64k and 1M rays, on the TPU probe's
-   spheres and a seeded set.  Every variant is held against its plain
-   version on the card (bit-equal, but M1's FMA and M2's TF32 routes
-   within their stated bounds).  Phase 1 also times M1's square root,
-   division and 1/x, and prints them beside the weights the bounds charge
-   (``SQRT_OPS``, ``DIV_OPS``).  Then ``probes.microbench_v5.run`` and
-   ``probes.microbench_mxuquad.run``: M5's visit at 32, 64 and 128 rows,
-   payload read each visit (``mxu``) or deferred (``defer``), a thread or a
+   products as an FP32 loop, TF32 and 3xTF32 wgmma (with ``torch.bmm`` at
+   each route's precision as the library call); M3's 128-key minimum,
+   serial, shuffled and ``__reduce_min_sync`` (with ``torch.amin``); M4's
+   cluster visit, a thread or a warp per ray at 4k, 64k and 1M rays, on
+   the TPU probe's spheres and a seeded set.  Every variant is held
+   against its plain version on the card (bit-equal, but M1's FMA and M2's
+   TF32 routes within their stated bounds).  Phase 1 also times M1's
+   square root, division and 1/x, and prints them beside the weights the
+   bounds charge (``SQRT_OPS``, ``DIV_OPS``).  Then
+   ``probes.microbench_v5.run`` and ``probes.microbench_mxuquad.run``:
+   M5's visit at 32, 64 and 128 rows, payload read each visit (``mxu``) or deferred (``defer``), a thread or a
    warp per ray, at 8,192, 65,536 and 1,048,576 rays; M6's deferred 8-field
    gather, 4 and 1 chunks, through ``__ldg`` or shared memory, at 8,192 and
    1,048,576 lanes (with ``tbl[:, slot]`` indexing timed beside it); M7's

@@ -15,7 +15,7 @@
 //                          tile, (lhs + salt + i) . rhs summed: pair
 //                          (128,8)@(8,256), pairT (8,128)^T(8,256), payload
 //                          (8,128)@(128,256); as an FP32 loop of fixed k
-//                          order, as TF32 mma.sync, and as 3xTF32 (hi/lo
+//                          order, and on wgmma as TF32 and 3xTF32 (hi/lo
 //                          split: hi*lo + lo*hi + hi*hi);
 //   M3 reduce_kernel (:134) the minimum of 128 keys per column of a
 //                          (128,256) block, v += 1 each iteration, the minima
@@ -39,7 +39,8 @@
 // __fadd_rn, so one build serves both.  Each variant is bit-equal to its
 // plain torch version (probes/microbench.py) but M1's FMA (within its
 // iterations' ulps) and M2's TF32 routes (within the rounding of their
-// operands): the arithmetic below is written in the order it is evaluated.
+// operands and sums, probes/microbench.py dot_tolerance): the arithmetic
+// below is written in the order it is evaluated.
 //
 // What bounds each on this card: M1-M4 are issue-bound by design (a few KB
 // of inputs, resident in L1/L2; the outputs are written once).  M1's
@@ -65,6 +66,32 @@
 // The MUFU unit issues 16 lanes a cycle an SM against the FP32 pipes' 128,
 // so a root or a reciprocal costs about 8 multiply-equivalents before its
 // refinement; M1 measures 8.84 and 8.77, and 16.39 for a general division.
+//
+// M2's schedule.  FP32 pair and pairT (K = 8): a thread per (row, 8
+// columns) holds its lhs row and b's 8 x 8 block in registers, 137 FP32
+// operations an iteration for the 128.25 the bound counts.  FP32 payload
+// (K = 128): a block per (tile, 16 columns), 2 an SM; its 256 threads take
+// 128 iterations at a time, a thread an (iteration, 4 rows) x 16 columns:
+// 64 independent k-ordered chains r_i, which 128 threads then fold into acc
+// in i order from shared memory.  Each product, sum and fold is the plain
+// version's, in the same order, so the result is dot_plain's bit for bit.
+// TF32 and 3xTF32:
+// the product is turned so that b^T is A and lhs_i^T is B: out^T = sum_i
+// b^T . lhs_i^T, m64n64k8 wgmma with A in the consumer's registers for the
+// whole launch and B in shared memory (A read from shared memory by every
+// wgmma, beside the producer's writes, was slower).  A producer warpgroup forms B into a ring of stages, a consumer
+// warpgroup issues the wgmma of a stage with no branch between them; named
+// barriers pass the stages.  pair: one k8 wgmma an
+// iteration into one D across every iteration, 16 iterations a stage;
+// payload: 8 iterations side by side (N = 64), each r_i summed from zero
+// by 16 wgmma, then acc = acc + r_i in float32 in i order.
+//
+// SASS of M2 (the same build, docs/MICROBENCH_H100.json): dot_fp32_rows
+//   64 FMUL + 73 FADD an iteration (56 sums, 8 acc, 8 lhs + s, 1 s);
+// dot_fp32_payload 512 FMUL, 497 FADD (the k loop unrolled 4 times, 64
+//   FMUL + 68 FADD a k); dot_tf32_rows 24 HGMMA.64x64x8.F32.TF32 (70 for
+//   3xTF32; 16 and 48 in a full stage's straight run); dot_tf32_payload
+//   16 (48); no FFMA in any M2 kernel.
 //
 // Layouts: salt (1,) f32.  M1 out (n,) f32.  M2 a (128,8) | (8,128) |
 // (8,128), b (8,256) | (8,256) | (128,256), out (grid, M, 256) f32, M 128 |
@@ -147,131 +174,499 @@ struct Dot {
   }
 };
 
-// (a) FP32 CUDA-core loop: one thread per row and 4 consecutive columns;
-// r = sum_k (lhs[r][k] + s) * b[k][j] in k order, uncontracted, then
-// acc = acc + r.
-constexpr int kNC = 4;
+// (a) FP32, pair and pairT (K = 8): one thread per row and 8 consecutive
+// columns, its lhs row and b's 8 x 8 block in registers for every
+// iteration; r = sum_k (lhs[r][k] + s) * b[k][j] in k order, uncontracted,
+// then acc = acc + r.
+constexpr int kRowCols = 8;
 
 template <int kKind>
 __global__ void __launch_bounds__(128)
-dot_fp32(const float* __restrict__ salt, const float* __restrict__ a,
-         const float* __restrict__ b, float* __restrict__ out, int iters,
-         int grid) {
+dot_fp32_rows(const float* __restrict__ salt, const float* __restrict__ a,
+              const float* __restrict__ b, float* __restrict__ out, int iters,
+              int grid) {
   using S = Dot<kKind>;
-  constexpr int kStrips = S::N / kNC;
+  static_assert(S::K == 8, "the rows kernel holds all of K in registers");
+  constexpr int kStrips = S::N / kRowCols;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= grid * S::M * kStrips) return;
   const int g = t / (S::M * kStrips);
   const int r = (t / kStrips) % S::M;
-  const int j0 = (t % kStrips) * kNC;
-  const float x = salt[0];
-  float acc[kNC];
+  const int j0 = (t % kStrips) * kRowCols;
+  float av[8], bv[8][kRowCols];
 #pragma unroll
-  for (int c = 0; c < kNC; ++c) acc[c] = 0.0f;
+  for (int k = 0; k < 8; ++k) {
+    av[k] = __ldg(a + S::aidx(r, k));
+    const float4 lo =
+        __ldg(reinterpret_cast<const float4*>(b + k * S::N + j0));
+    const float4 hi =
+        __ldg(reinterpret_cast<const float4*>(b + k * S::N + j0 + 4));
+    bv[k][0] = lo.x; bv[k][1] = lo.y; bv[k][2] = lo.z; bv[k][3] = lo.w;
+    bv[k][4] = hi.x; bv[k][5] = hi.y; bv[k][6] = hi.z; bv[k][7] = hi.w;
+  }
+  const float x = salt[0];
+  float acc[kRowCols];
+#pragma unroll
+  for (int c = 0; c < kRowCols; ++c) acc[c] = 0.0f;
   for (int i = 0; i < iters; ++i) {
     const float s = __fadd_rn(x, (float)i);
-    float rs[kNC];
-#pragma unroll 8
-    for (int k = 0; k < S::K; ++k) {
-      const float l = __fadd_rn(__ldg(a + S::aidx(r, k)), s);
-      const float4 bk = __ldg(reinterpret_cast<const float4*>(
-          b + k * S::N + j0));
-      const float bv[kNC] = {bk.x, bk.y, bk.z, bk.w};
+    float rs[kRowCols];
+    const float l0 = __fadd_rn(av[0], s);
 #pragma unroll
-      for (int c = 0; c < kNC; ++c) {
-        const float p = __fmul_rn(l, bv[c]);
-        rs[c] = k == 0 ? p : __fadd_rn(rs[c], p);
-      }
+    for (int c = 0; c < kRowCols; ++c) rs[c] = __fmul_rn(l0, bv[0][c]);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) {
+      const float l = __fadd_rn(av[k], s);
+#pragma unroll
+      for (int c = 0; c < kRowCols; ++c)
+        rs[c] = __fadd_rn(rs[c], __fmul_rn(l, bv[k][c]));
     }
 #pragma unroll
-    for (int c = 0; c < kNC; ++c) acc[c] = __fadd_rn(acc[c], rs[c]);
+    for (int c = 0; c < kRowCols; ++c) acc[c] = __fadd_rn(acc[c], rs[c]);
   }
-  *reinterpret_cast<float4*>(out + ((size_t)g * S::M + r) * S::N + j0) =
-      make_float4(acc[0], acc[1], acc[2], acc[3]);
+  float* o = out + ((size_t)g * S::M + r) * S::N + j0;
+  *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  *reinterpret_cast<float4*>(o + 4) =
+      make_float4(acc[4], acc[5], acc[6], acc[7]);
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
-  return y;
+// (b) FP32, payload (M = 8, K = 128): a block owns the 8 x 16 outputs of
+// one tile and column strip, b's strip (8 KB) and a (4 KB) in shared
+// memory.  Its 256 threads take a chunk of kChunk iterations at a time, a
+// thread (iteration, 4 rows) x 16 columns: 64 independent k-ordered chains
+// r_i of uncontracted products and sums, with l = a + s_i formed once a
+// (row, k) per thread.  The chunk's r_i go to shared memory; then 128
+// threads, one an output, fold them into acc in i order: acc = acc + r_i
+// as the plain version does.  256 blocks at 2 an SM (78 KB each).
+constexpr int kPayCols = 16;                  // output columns a block
+constexpr int kChunk = 128;                   // iterations a chunk
+constexpr int kPayThreads = 2 * kChunk;       // (iteration, half of M)
+constexpr int kRPad = 8 * kPayCols + 4;       // floats of one r_i, padded
+constexpr int kPaySmem = 4 * (kChunk * kRPad + kRows * kPayCols + kRows * 8);
+
+template <bool kFirst>
+__device__ __forceinline__ void pay_step(float (&r)[4][kPayCols],
+                                         const float4* a4, const float4* b4,
+                                         int k, float s) {
+  const float4 av = a4[2 * k];
+  const float l[4] = {__fadd_rn(av.x, s), __fadd_rn(av.y, s),
+                      __fadd_rn(av.z, s), __fadd_rn(av.w, s)};
+  float bv[kPayCols];
+#pragma unroll
+  for (int c4 = 0; c4 < kPayCols / 4; ++c4) {
+    const float4 v = b4[(kPayCols / 4) * k + c4];
+    bv[4 * c4] = v.x; bv[4 * c4 + 1] = v.y;
+    bv[4 * c4 + 2] = v.z; bv[4 * c4 + 3] = v.w;
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int c = 0; c < kPayCols; ++c) {
+      const float p = __fmul_rn(l[m], bv[c]);
+      r[m][c] = kFirst ? p : __fadd_rn(r[m][c], p);
+    }
 }
 
-// D = A(16x8, row) . B(8x8, col) + C in TF32 with float32 accumulation.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// (b) TF32 and (c) 3xTF32 mma.sync: one warp per 16x8 output tile, all
-// iterations, D += A.B per k step of 8.  Fragments (PTX ISA, m16n8k8 .tf32):
-// with q = lane / 4 and p = lane % 4, A holds (q, p), (q+8, p), (q, p+4),
-// (q+8, p+4); B (p, q), (p+4, q); C (q, 2p), (q, 2p+1), (q+8, 2p),
-// (q+8, 2p+1).  The payload's 8 rows fill half of a 16-row tile; the other
-// half is zero.
-template <int kKind, bool kSplit>
-__global__ void __launch_bounds__(128)
-dot_tf32(const float* __restrict__ salt, const float* __restrict__ a,
-         const float* __restrict__ b, float* __restrict__ out, int iters,
-         int grid) {
-  using S = Dot<kKind>;
-  constexpr int kMT = (S::M + 15) / 16, kNT = S::N / 8, kKS = S::K / 8;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp >= grid * kMT * kNT) return;
-  const int g = warp / (kMT * kNT);
-  const int m0 = ((warp / kNT) % kMT) * 16, n0 = (warp % kNT) * 8;
-  const int q = lane / 4, p = lane % 4;
+__global__ void __launch_bounds__(kPayThreads, 2)
+dot_fp32_payload(const float* __restrict__ salt, const float* __restrict__ a,
+                 const float* __restrict__ b, float* __restrict__ out,
+                 int iters, int grid) {
+  extern __shared__ float4 pay_smem[];
+  float* rs = reinterpret_cast<float*>(pay_smem);   // [kChunk][kRPad]
+  float* bs = rs + kChunk * kRPad;                  // [k][kPayCols]
+  float* as = bs + kRows * kPayCols;                // [k][m] = a[m][k]
+  constexpr int kStrips = kT / kPayCols;
+  const int g = blockIdx.x / kStrips, n0 = (blockIdx.x % kStrips) * kPayCols;
+  const int t = threadIdx.x;
+  for (int e = t; e < kRows * kPayCols; e += kPayThreads)
+    bs[e] = __ldg(b + (e / kPayCols) * kT + n0 + e % kPayCols);
+  for (int e = t; e < kRows * 8; e += kPayThreads)
+    as[e] = __ldg(a + (e % 8) * kRows + e / 8);
+  __syncthreads();
   const float x = salt[0];
-  // B's fragments are the same every iteration: split them once
-  uint32_t bh[kKS][2], bl[kKS][2];
+  const int il = t >> 1, mh = t & 1;
+  const float4* a4 = reinterpret_cast<const float4*>(as) + mh;
+  const float4* b4 = reinterpret_cast<const float4*>(bs);
+  const bool sweeps = t < 8 * kPayCols;
+  const int sm = t / kPayCols, sn = t % kPayCols;   // the output it folds
+  float acc = 0.0f;
+  for (int i0 = 0; i0 < iters; i0 += kChunk) {
+    const int i = i0 + il;
+    float r[4][kPayCols];
+    if (i < iters) {
+      const float s = __fadd_rn(x, (float)i);
+      pay_step<true>(r, a4, b4, 0, s);
+#pragma unroll 4
+      for (int k = 1; k < kRows; ++k) pay_step<false>(r, a4, b4, k, s);
+    }
+    __syncthreads();                    // the last chunk's fold is done
+    if (i < iters) {
+      float4* dst = reinterpret_cast<float4*>(rs + il * kRPad +
+                                              mh * 4 * kPayCols);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int c4 = 0; c4 < kPayCols / 4; ++c4)
+          dst[m * (kPayCols / 4) + c4] =
+              make_float4(r[m][4 * c4], r[m][4 * c4 + 1], r[m][4 * c4 + 2],
+                          r[m][4 * c4 + 3]);
+    }
+    __syncthreads();
+    if (sweeps) {
+      const int cnt = min(kChunk, iters - i0);
+      const float* src = rs + sm * kPayCols + sn;
+#pragma unroll 8
+      for (int j = 0; j < cnt; ++j) acc = __fadd_rn(acc, src[j * kRPad]);
+    }
+  }
+  if (sweeps) out[((size_t)g * 8 + sm) * kT + n0 + sn] = acc;
+}
+
+// (c) TF32 and (d) 3xTF32 on wgmma (sm_90a): one warpgroup forms B in
+// shared memory, another holds A in registers and issues m64n64k8 products
+// into float32 registers.
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero), in two integer operations where cvt takes four
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+// st.shared writes become visible to wgmma's reads (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// pins a register's value behind the fences and waits before it
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// B's shared-memory layout (PTX ISA, "Matrix Descriptor"), K-major, no
+// swizzle: core matrices of 8 rows x 4 k (16 bytes a row); kLbo bytes to
+// the next 4 k, kSbo to the next 8 rows; one k8 slice of R rows is R * 32
+// bytes.
+constexpr uint32_t kLbo = 128, kSbo = 256;
+
+__device__ __forceinline__ int kmajor_word(int row, int k) {
+  return (row >> 3) * 64 + (k >> 2) * 32 + (row & 7) * 4 + (k & 3);
+}
+
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kLbo >> 4) << 16) |
+         ((uint64_t)(kSbo >> 4) << 32);
+}
+
+// D (64 x 64) = A (64 x 8) . B (8 x 64) + (scale_d ? D : 0), A from
+// registers, B from shared memory.  With w the warp of the warpgroup, q =
+// lane / 4 and p = lane % 4, a[e] holds A's (16w + q + 8 (e & 1), p + 4 (e
+// >> 1)) and D[4j + 2h + c] is (16w + q + 8h, 8j + 2p + c) (PTX ISA, wgmma
+// .m64nNk8 .tf32 register fragments).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+constexpr int kTcN = 64;        // a warpgroup's tile: m64n64
+constexpr int kRing = 3;        // B's stages in shared memory
+
+// named barriers between the consumer warpgroup (0) and the producer (1):
+// stage s is formed (kFull + s), stage s is read (kEmpty + s)
+constexpr int kFull = 1, kEmpty = kFull + kRing, kBoth = 256;
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kBoth) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kBoth) : "memory");
+}
+// the thread's warpgroup, uniform across the warp as ptxas can see (a
+// branch on threadIdx.x alone makes it serialize the wgmma behind it)
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
+// A = b^T's 64 x 8 slice k0..k0+7, rows c0 and c0 + 8 of A (columns of
+// b), as TF32 hi and lo (3xTF32): the thread's register fragment
+template <bool kSplit>
+__device__ __forceinline__ void bt_fragment(const float* __restrict__ b,
+                                            int k0, int c0, int p,
+                                            uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float v =
+        __ldg(b + (k0 + p + 4 * (e >> 1)) * kT + c0 + 8 * (e & 1));
+    hi[e] = to_tf32(v);
+    if constexpr (kSplit)
+      lo[e] = to_tf32(__fsub_rn(v, __uint_as_float(hi[e])));
+  }
+}
+
+// 4 consecutive k of one row of B: lhs + s in TF32 (hi, and lo for
+// 3xTF32), stored at word w of a stage's hi and lo parts
+template <bool kSplit>
+__device__ __forceinline__ void form4(float4 base, float s, uint32_t* hi,
+                                      uint32_t* lo, int w) {
+  const float v[4] = {__fadd_rn(base.x, s), __fadd_rn(base.y, s),
+                      __fadd_rn(base.z, s), __fadd_rn(base.w, s)};
+  uint32_t h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = to_tf32(v[e]);
+  *reinterpret_cast<uint4*>(hi + w) = make_uint4(h[0], h[1], h[2], h[3]);
+  if constexpr (kSplit) {
+    uint32_t l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      l[e] = to_tf32(__fsub_rn(v[e], __uint_as_float(h[e])));
+    *reinterpret_cast<uint4*>(lo + w) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// One k8 step from A's registers and the descriptors of B's hi and lo
+// parts: D += b^T . lhs^T (TF32), or for 3xTF32 b_hi . lhs_lo + b_lo .
+// lhs_hi + b_hi . lhs_hi; scale_d 0 starts D from zero.  Callers issue a
+// run of steps with no branch between them: ptxas gives a wgmma behind a
+// branch a fence and a scoreboard wait of its own.
+template <bool kSplit>
+__device__ __forceinline__ void tf32_step(float (&d)[32],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          uint64_t bh, uint64_t bl,
+                                          int scale_d) {
+  if constexpr (kSplit) {
+    wgmma_tf32(d, ah, bl, scale_d);
+    wgmma_tf32(d, al, bh, 1);
+    wgmma_tf32(d, ah, bh, 1);
+  } else {
+    wgmma_tf32(d, ah, bh, scale_d);
+  }
+}
+
+// pair and pairT: out^T (256 x 128) = sum_i b^T (256 x 8) . lhs_i^T (8 x
+// 128).  A block owns a 64 x 64 tile of one grid tile (128 blocks) and
+// runs two warpgroups.  The producer forms lhs_i^T's 8 x 64 slice, kGroup
+// iterations a stage, into a ring of kRing stages in shared memory (TF32
+// hi, and lo for 3xTF32).  The consumer holds b^T's 64 x 8 slice as A in
+// registers and issues one k8 wgmma an iteration (three for 3xTF32: hi.lo,
+// lo.hi, hi.hi), every one into the same D; a stage is given back once the
+// wgmma that read it have been waited for.
+constexpr int kGroup = 16;
+template <bool kSplit>
+constexpr int tf32_rows_smem() {            // the ring of B's stages
+  return kRing * kGroup * (kSplit ? 2 : 1) * kTcN * 8 * 4;
+}
+
+template <int kKind, bool kSplit>
+__global__ void __launch_bounds__(256)
+dot_tf32_rows(const float* __restrict__ salt, const float* __restrict__ a,
+              const float* __restrict__ b, float* __restrict__ out, int iters,
+              int grid) {
+  using S = Dot<kKind>;
+  static_assert(S::M % kTcN == 0 && S::N % 64 == 0 && S::K == 8, "");
+  constexpr int kParts = kSplit ? 2 : 1, kStage = kTcN * 8;
+  constexpr int kNT = S::N / 64, kRT = S::M / kTcN, kG = kGroup;
+  extern __shared__ __align__(128) uint32_t smem[];
+  // B's stage of iteration u of group stage st, part h
+  auto lt = [&](int st, int u, int h) {
+    return smem + ((st * kG + u) * kParts + h) * kStage;
+  };
+  const int nt = blockIdx.x % kNT, rt = (blockIdx.x / kNT) % kRT;
+  const int g = blockIdx.x / (kNT * kRT);
+  const int t = threadIdx.x & 127;
+  const int groups = (iters + kG - 1) / kG;
+  const float x = salt[0];
+  if (warpgroup() == 1) {
+    // producer: lhs row rt * 64 + (t & 63), k = 4 kc + 0..3
+    const int rl = t & 63, kc = t >> 6, row = rt * kTcN + rl;
+    const float4 base = make_float4(__ldg(a + S::aidx(row, 4 * kc)),
+                                    __ldg(a + S::aidx(row, 4 * kc + 1)),
+                                    __ldg(a + S::aidx(row, 4 * kc + 2)),
+                                    __ldg(a + S::aidx(row, 4 * kc + 3)));
+    const int w = kmajor_word(rl, 4 * kc);
+    for (int j = 0; j < groups; ++j) {
+      const int st = j % kRing, n = min(kG, iters - j * kG);
+      if (j >= kRing) bar_sync(kEmpty + st);
+#pragma unroll
+      for (int u = 0; u < kG; ++u)
+        if (u < n)
+          form4<kSplit>(base, __fadd_rn(x, (float)(j * kG + u)),
+                        lt(st, u, 0), lt(st, u, kParts - 1), w);
+      fence_proxy_async();
+      bar_arrive(kFull + st);
+    }
+    return;
+  }
+  const int lane = t & 31, q = lane >> 2, p = lane & 3;
+  const int c0 = nt * 64 + (t >> 5) * 16 + q;
+  uint32_t ah[4], al[4];
+  bt_fragment<kSplit>(b, 0, c0, p, ah, al);
+  float d[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) d[e] = 0.0f;
+  for (int j = 0; j < groups; ++j) {
+    const int st = j % kRing, n = min(kG, iters - j * kG);
+    bar_sync(kFull + st);
+    if (n == kG) {            // no branch between the wgmma of a full group
+      uint64_t bh[kG], bl[kG];
+#pragma unroll
+      for (int u = 0; u < kG; ++u) {
+        bh[u] = kmajor_desc(lt(st, u, 0));
+        bl[u] = kmajor_desc(lt(st, u, kParts - 1));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < kG; ++u)
+        tf32_step<kSplit>(d, ah, al, bh[u], bl[u], 1);
+    } else {
+      wgmma_fence();
+      for (int u = 0; u < n; ++u)
+        tf32_step<kSplit>(d, ah, al, kmajor_desc(lt(st, u, 0)),
+                          kmajor_desc(lt(st, u, kParts - 1)), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                  // group j - 1 is done: its stage too
+    if (j >= 1) bar_arrive(kEmpty + (j - 1) % kRing);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 32; ++e) reg_fence(d[e]);
+  // D[4j + 2h + c] is (column c0 + 8h, lhs row rt * 64 + 8j + 2p + c)
+  float* o = out + (size_t)g * S::M * S::N;
+#pragma unroll
+  for (int j = 0; j < kTcN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        o[(rt * kTcN + 8 * j + 2 * p + c) * S::N + c0 + 8 * h] =
+            d[4 * j + 2 * h + c];
+}
+
+// payload: out^T (256 x 8) = sum_i b^T (256 x 128) . lhs_i^T (128 x 8).  A
+// block owns 64 output columns of one grid tile (64 blocks) and runs two
+// warpgroups.  The producer forms kBatch iterations' lhs_i^T side by side
+// as one stage of B (N = 8 kBatch = 64, 16 k8 slices), into a ring of
+// kRing stages; its a values stay in registers.  The consumer holds b^T's
+// 64 x 128 slice as A in registers (TF32 hi, and lo for 3xTF32) and runs a
+// batch's 16 k8 wgmma (48 for 3xTF32) into its accumulator from zero, so
+// each r_i is summed by the tensor cores alone; then it adds the
+// accumulator's column blocks to acc in float32, in i order: acc = acc +
+// r_i.
+constexpr int kBatch = kTcN / 8;
+constexpr int kLWords = (kRows / 8) * kTcN * 8;   // a stage's part (32 KB)
+
+template <bool kSplit>
+constexpr int tf32_payload_smem() {        // the ring of B's stages
+  return kRing * (kSplit ? 2 : 1) * kLWords * 4;
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(256, 1)
+dot_tf32_payload(const float* __restrict__ salt, const float* __restrict__ a,
+                 const float* __restrict__ b, float* __restrict__ out,
+                 int iters, int grid) {
+  constexpr int kParts = kSplit ? 2 : 1, kKS = kRows / 8, kNT = kT / kTcN;
+  constexpr uint64_t kSlice = kTcN * 8 * 4 / 16;   // a k8 slice, 16 B units
+  extern __shared__ __align__(128) uint32_t lt[];  // [stage][part][ks][64x8]
+  const int g = blockIdx.x / kNT, n0 = (blockIdx.x % kNT) * kTcN;
+  const int t = threadIdx.x & 127;
+  const int batches = (iters + kBatch - 1) / kBatch;
+  const float x = salt[0];
+  if (warpgroup() == 1) {
+    // producer: B's row 8 jg + jr (iteration jg of the batch, lhs row jr),
+    // k = 8 ks + 4 kc + 0..3 for every ks
+    const int jg = t >> 4, kc = (t >> 3) & 1, jr = t & 7;
+    const int w = kmajor_word(8 * jg + jr, 4 * kc);
+    float4 av[kKS];                    // the same for every batch
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks)
+      av[ks] = __ldg(reinterpret_cast<const float4*>(a + jr * kRows + 8 * ks +
+                                                     4 * kc));
+    for (int bt = 0; bt < batches; ++bt) {
+      const int st = bt % kRing;
+      uint32_t* hi = lt + st * kParts * kLWords;
+      if (bt >= kRing) bar_sync(kEmpty + st);
+      const float s = __fadd_rn(x, (float)(bt * kBatch + jg));
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks)
+        form4<kSplit>(av[ks], s, hi + ks * kTcN * 8,
+                      hi + (kParts - 1) * kLWords + ks * kTcN * 8, w);
+      fence_proxy_async();
+      bar_arrive(kFull + st);
+    }
+    return;
+  }
+  const int lane = t & 31, q = lane >> 2, p = lane & 3;
+  const int c0 = n0 + (t >> 5) * 16 + q;    // A's rows c0 and c0 + 8: columns
+  uint32_t ah[kKS][4], al[kKS][4];            // b^T's fragments, hi and lo
 #pragma unroll
   for (int ks = 0; ks < kKS; ++ks)
+    bt_fragment<kSplit>(b, 8 * ks, c0, p, ah[ks], al[ks]);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float d[32];
+  for (int bt = 0; bt < batches; ++bt) {
+    const int st = bt % kRing;
+    const uint32_t* hi = lt + st * kParts * kLWords;
+    const uint64_t bh = kmajor_desc(hi);
+    const uint64_t bl = kmajor_desc(hi + (kParts - 1) * kLWords);
+    bar_sync(kFull + st);
+    wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v = __ldg(b + (ks * 8 + p + 4 * h) * S::N + n0 + q);
-      bh[ks][h] = to_tf32(v);
-      bl[ks][h] = to_tf32(__fsub_rn(v, __uint_as_float(bh[ks][h])));
-    }
-  const bool lo_ok = m0 + q < S::M, hi_ok = m0 + q + 8 < S::M;
-  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < iters; ++i) {
-    const float s = __fadd_rn(x, (float)i);
+    for (int ks = 0; ks < kKS; ++ks)
+      tf32_step<kSplit>(d, ah[ks], al[ks], bh + ks * kSlice,
+                        bl + ks * kSlice, ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    bar_arrive(kEmpty + st);          // the stage is read: give it back
 #pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      const int k0 = ks * 8 + p;
-      const float v[4] = {
-          lo_ok ? __fadd_rn(__ldg(a + S::aidx(m0 + q, k0)), s) : 0.0f,
-          hi_ok ? __fadd_rn(__ldg(a + S::aidx(m0 + q + 8, k0)), s) : 0.0f,
-          lo_ok ? __fadd_rn(__ldg(a + S::aidx(m0 + q, k0 + 4)), s) : 0.0f,
-          hi_ok ? __fadd_rn(__ldg(a + S::aidx(m0 + q + 8, k0 + 4)), s)
-                : 0.0f};
-      uint32_t ah[4];
+    for (int e = 0; e < 32; ++e) reg_fence(d[e]);
+    const int cnt = min(kBatch, iters - bt * kBatch);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ah[e] = to_tf32(v[e]);
-      if constexpr (kSplit) {
-        uint32_t al[4];
+    for (int j = 0; j < kBatch; ++j)
+      if (j < cnt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          al[e] = to_tf32(__fsub_rn(v[e], __uint_as_float(ah[e])));
-        mma_tf32(c, al, bh[ks]);
-        mma_tf32(c, ah, bl[ks]);
-      }
-      mma_tf32(c, ah, bh[ks]);
-    }
+        for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], d[4 * j + e]);
   }
-  float* o = out + (size_t)g * S::M * S::N;
-  if (lo_ok) {
-    o[(m0 + q) * S::N + n0 + 2 * p] = c[0];
-    o[(m0 + q) * S::N + n0 + 2 * p + 1] = c[1];
-  }
-  if (hi_ok) {
-    o[(m0 + q + 8) * S::N + n0 + 2 * p] = c[2];
-    o[(m0 + q + 8) * S::N + n0 + 2 * p + 1] = c[3];
-  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    out[((size_t)g * 8 + 2 * p + (e & 1)) * kT + c0 + 8 * (e >> 1)] = acc[e];
+}
+
+template <typename... P, typename... A>
+int launch_with_smem(void (*kernel)(P...), int blocks, int threads, int smem,
+                     cudaStream_t st, A... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, threads, smem, st>>>(args...);
+  return 0;
 }
 
 template <int kKind>
@@ -279,23 +674,36 @@ int launch_dot_kind(int route, const float* salt, const float* a,
                     const float* b, float* out, int iters, int grid,
                     cudaStream_t st) {
   using S = Dot<kKind>;
-  if (route == 0) {
-    const int threads = grid * S::M * (S::N / kNC);
-    dot_fp32<kKind><<<(threads + 127) / 128, 128, 0, st>>>(salt, a, b, out,
-                                                           iters, grid);
-    return 0;
+  if (route < 0 || route > 2) return (int)cudaErrorInvalidValue;
+  if constexpr (kKind == kPayload) {
+    if (route == 0)
+      return launch_with_smem(dot_fp32_payload, grid * (kT / kPayCols),
+                              kPayThreads, kPaySmem, st, salt, a, b, out,
+                              iters, grid);
+    const int blocks = grid * (kT / kTcN);
+    if (route == 1)
+      return launch_with_smem(dot_tf32_payload<false>, blocks, 256,
+                              tf32_payload_smem<false>(), st, salt, a, b,
+                              out, iters, grid);
+    return launch_with_smem(dot_tf32_payload<true>, blocks, 256,
+                            tf32_payload_smem<true>(), st, salt, a, b, out,
+                            iters, grid);
+  } else {
+    if (route == 0) {
+      const int threads = grid * S::M * (S::N / kRowCols);
+      dot_fp32_rows<kKind><<<(threads + 127) / 128, 128, 0, st>>>(
+          salt, a, b, out, iters, grid);
+      return 0;
+    }
+    const int blocks = grid * (S::M / kTcN) * (S::N / 64);
+    if (route == 1)
+      return launch_with_smem(dot_tf32_rows<kKind, false>, blocks, 256,
+                              tf32_rows_smem<false>(), st, salt, a, b, out,
+                              iters, grid);
+    return launch_with_smem(dot_tf32_rows<kKind, true>, blocks, 256,
+                            tf32_rows_smem<true>(), st, salt, a, b, out,
+                            iters, grid);
   }
-  const int warps = grid * ((S::M + 15) / 16) * (S::N / 8);
-  const int blocks = (warps * 32 + 127) / 128;
-  if (route == 1)
-    dot_tf32<kKind, false><<<blocks, 128, 0, st>>>(salt, a, b, out, iters,
-                                                   grid);
-  else if (route == 2)
-    dot_tf32<kKind, true><<<blocks, 128, 0, st>>>(salt, a, b, out, iters,
-                                                  grid);
-  else
-    return (int)cudaErrorInvalidValue;
-  return 0;
 }
 
 // ------------------------------------------------------------------ M3

@@ -45,6 +45,12 @@ T, LANE = mb.T, mb.ROWS
 SALT = np.float32(mb.SALT)
 ULP = 2.0 ** -23
 _JX = {}
+# iteration counts that cross the edges of the M2 kernels' schedules
+# (csrc/microbench.cu): the TF32 payload kernel's wgmma batch (kBatch, 8),
+# the TF32 rows kernel's stage (kGroup, 16), the FP32 payload kernel's
+# chunk (kChunk, 128)
+DOT_EDGE_ITERS = (0, 1) + tuple(e + d for e in (8, 16, 128)
+                                for d in (-1, 0, 1))
 
 
 def _jx():
@@ -176,6 +182,57 @@ def test_dot_tolerance_admits_tf32_and_rejects_a_wrong_product(kind, route):
     perm = torch.randperm(b.shape[1], generator=torch.Generator().manual_seed(0))
     wrong = mb.dot_plain(_salt(), a, b[:, perm], kind, iters, 1)[0]
     assert not bool(((wrong.double() - exact).abs() <= tol).all())
+
+
+def _toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32, truncated toward zero."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tensor_core_model(a, b, kind, route, iters):
+    """The TF32 routes' schedule with the tensor cores' rounding modelled:
+    operands rounded as cvt.rna does, each k8 step's exact products added
+    to the float32 sum and truncated toward zero (lo.hi, hi.lo, hi.hi for
+    3xTF32).  pair, pairT: one sum over every iteration; payload: r_i from
+    zero, then acc + r_i in float32."""
+    L = mb._dot_lhs(_salt(), a, kind, iters)
+    lh, bh = _tf32(L), _tf32(b)
+    terms = ([(lh, bh)] if route == "tf32" else
+             [(_tf32(L - lh), bh), (lh, _tf32(b - bh)), (lh, bh)])
+    run = torch.zeros(L.shape[1], b.shape[1])
+    acc = torch.zeros_like(run)
+    for i in range(iters):
+        d = torch.zeros_like(run) if kind == "payload" else run
+        for k0 in range(0, b.shape[0], 8):
+            for x, y in terms:
+                d = _toward_zero(d.double() + x[i, :, k0:k0 + 8].double()
+                                 @ y[k0:k0 + 8].double())
+        if kind == "payload":
+            acc = acc + d
+        else:
+            run = d
+    return acc if kind == "payload" else run
+
+
+@pytest.mark.parametrize("route", ["tf32", "3xtf32"])
+@pytest.mark.parametrize("kind", ["pair", "payload"])
+def test_dot_tolerance_admits_truncating_tensor_core_steps(kind, route):
+    """The kernels' sum trees with every k8 step truncated: within
+    ``dot_tolerance``; payload's bound, derived for r_i summed from zero,
+    lies below the one charged when every step adds into the running sum."""
+    iters = 16
+    a, b = mb._dot_inputs(kind, "seeded", "cpu")
+    got = _tensor_core_model(a, b, kind, route, iters)
+    exact, mag, running = mb.dot_reference(_salt(), a, b, kind, iters)
+    tol = mb.dot_tolerance(route, kind, mag, running)
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    if kind == "payload":
+        split = 3 if route == "3xtf32" else 1
+        every_step = (mb.DOT_EPS[route] * mag + 2.0 ** -22
+                      * (split * mag + 16 * split * running))
+        assert bool((tol < every_step).all())
 
 
 # ---------------------------------------------------------------- M3
@@ -457,19 +514,42 @@ def test_card_fma_equals_plain(cuda, mode, streams):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", [1, 3])
+@pytest.mark.parametrize("iters", DOT_EDGE_ITERS)
 @pytest.mark.parametrize("route", mb.DOT_ROUTES)
 @pytest.mark.parametrize("kind", mb.DOT_KINDS)
-def test_card_dot_equals_plain(cuda, kind, route):
+def test_card_dot_equals_plain(cuda, kind, route, iters, grid):
+    """Each route at the kernels' batch and chunk edges: the FP32 loop
+    bit-equal to dot_plain, the TF32 routes within dot_tolerance, every
+    tile of the grid alike."""
     s = torch.tensor([SALT], device=cuda)
     a, b = mb._dot_inputs(kind, "seeded", cuda)
-    y = mb.dot(s, a, b, kind, 8, 3, route)
+    n0 = mb.LAUNCHES[mb.dot_label(kind, route)]
+    y = mb.dot(s, a, b, kind, iters, grid, route)
+    assert mb.LAUNCHES[mb.dot_label(kind, route)] == n0 + 1
+    assert y.shape == (grid,) + mb.DOT_SHAPES[kind][2]
     if route == "fp32":
-        ref = mb.dot_plain(s, a, b, kind, 8, 3)
+        ref = mb.dot_plain(s, a, b, kind, iters, grid)
         assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
     else:
-        exact, mag, running = mb.dot_reference(s, a, b, kind, 8)
+        exact, mag, running = mb.dot_reference(s, a, b, kind, iters)
         tol = mb.dot_tolerance(route, kind, mag, running)
         assert bool(((y.double() - exact).abs() <= tol).all())
+        assert bool((y == y[:1]).all())
+
+
+@pytest.mark.cuda
+def test_card_dot_sass_runs_tf32_on_wgmma(cuda):
+    """The TF32 and 3xTF32 kernels issue HGMMA; no M2 kernel holds an FFMA
+    (the FP32 loop is uncontracted)."""
+    from raytracers_tpu_torch.render import _cuda
+    _cuda.load("microbench")
+    counts, _ = mb.sass_counts(_cuda.build_info["microbench"]["path"])
+    dots = {f: c for f, c in counts.items() if "dot_" in f}
+    tf32 = [f for f in dots if "dot_tf32" in f]
+    assert len(dots) == 9 and len(tf32) == 6
+    assert all(dots[f].get("HGMMA", 0) > 0 for f in tf32)
+    assert not [f for f, c in dots.items() if "FFMA" in c]
 
 
 @pytest.mark.cuda
