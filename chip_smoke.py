@@ -140,7 +140,7 @@ a failed phase exits non-zero before the final line:
    warp per ray, at 8,192, 65,536 and 1,048,576 rays; M6's deferred 8-field
    gather, 4 and 1 chunks, through ``__ldg`` or shared memory, at 8,192 and
    1,048,576 lanes (with ``tbl[:, slot]`` indexing timed beside it); M7's
-   five variants, the FP32 quadratic (``vpu``) or bf16 ``mma.sync``
+   five variants, the FP32 quadratic (``vpu``) or bf16 ``wgmma``
    (``mxuquad``, splits 1 and 3), at 8,192 and 1,048,576 rays (with
    ``torch.matmul`` of the bf16 operands), on the TPU probes' inputs and a
    seeded set.  M5, M6 and M7's ``vpu`` are bit-equal to their plain

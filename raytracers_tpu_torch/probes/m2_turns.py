@@ -39,19 +39,20 @@ OUT_DIR = _cuda.BUILD_DIR.parent / "m2_turns"
 ORDER = ("parent", "change", "change", "parent") * 2
 
 
-def build(parent: Path) -> dict:
-    """{"parent", "change"}: (the loaded library, its path), one nvcc a
-    source, started together."""
-    sources = {"parent": parent / "raytracers_tpu_torch" / "csrc"
-               / "microbench.cu", "change": _cuda.source("microbench")}
+def build(parent: Path, kernel: str = "microbench") -> dict:
+    """{"parent", "change"}: (the loaded library, its path) of ``kernel``'s
+    source (``render/_cuda.KERNELS``) in ``parent`` and in this checkout,
+    one nvcc a source, started together."""
+    src, fn_name, argtypes = _cuda.KERNELS[kernel]
+    sources = {"parent": parent / "raytracers_tpu_torch" / "csrc" / src,
+               "change": _cuda.source(kernel)}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
-        so = OUT_DIR / f"microbench_{name}.so"
+        so = OUT_DIR / f"{kernel}_{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(so), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    _, fn_name, argtypes = _cuda.KERNELS["microbench"]
     libs = {}
     for name, (so, proc) in procs.items():
         _, err = proc.communicate()

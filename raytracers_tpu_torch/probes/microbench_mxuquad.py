@@ -15,13 +15,22 @@ hand-written CUDA (``csrc/microbench_mxuquad.cu``):
 
 * mode ``vpu``: M5's ``mxu`` visit, the FP32 chain, one thread per ray;
   bit-equal to its plain version;
-* mode ``mxuquad``: one bf16 ``mma.sync.m16n8k16`` per 8 sphere rows, 8
-  rays and split (the depth of 16 is the 16 features), then the rest of
-  the visit warp-cooperatively, the key's minimum over rows by shuffles.
+* mode ``mxuquad``: the product on ``wgmma`` m64nNk16 (bf16 operands,
+  float32 sums from zero, the depth of 16 the 16 features), every visit:
+  64 rays a warpgroup on M with F^T in its registers, G^T staged once a
+  block in shared memory with each sphere row's b and c columns side by
+  side, so a thread finishes the quadratic of its (ray, row) pairs; a
+  block's ``parts`` warpgroups (``mxuquad_parts``) share a tile's visits
+  and fold their running minima by key (``visit_mxuquad_parts_model``):
+  4 at the TPU's 8,192 rays, 1 from 33,792 on.  It is bound by its FP32
+  tail after the product (``visit_mxuquad_work``: 19 + 2 (splits - 1)
+  lane operations and a root a (ray, row) test); the product's flops
+  would take under a tenth of that at the tensor cores' peak.
   Tensor-core sums are not IEEE, so the kernel's product is held within a
   stated bound of the float64 product of the bf16-rounded operands
   (``product_tolerance``), and the visit after it bit for bit against the
-  plain visit given that product.
+  plain visit given that product.  ``layout_model`` mirrors the kernel's
+  fragments and shared-memory layout for the CPU tests.
 
 The wrapper launches its kernel for CUDA tensors (counted in
 ``microbench.LAUNCHES`` under the variant's label) and takes the plain
@@ -39,6 +48,7 @@ yardstick: no result of the port goes through it.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 import time
@@ -50,9 +60,10 @@ import torch
 from ..utils.platform import resolve_device
 from . import microbench_v5 as v5
 from .microbench import (F32, FP32_LANE_OPS_PER_S, HBM_BYTES_PER_S, I32,
-                         SALT, ProbeMismatch, _bit_equal, _c, _entry,
-                         _expect, _launch, _on_card, _plain_timed, _smi,
-                         _timed, measure_mul_equivalents, sass_counts)
+                         LAUNCHES, SALT, ProbeMismatch, _bit_equal, _c,
+                         _entry, _expect, _launch, _on_card, _plain_timed,
+                         _ptr, _smi, _timed, measure_mul_equivalents,
+                         sass_counts)
 
 T, ITERS, INPUTS = v5.T, v5.ITERS, v5.INPUTS
 MODES = ("vpu", "mxuquad")
@@ -65,6 +76,10 @@ RAYS = (v5.GRID * T, 1 << 20)
 N_FEATURES = 16
 BF16_FLOPS_PER_S = 989e12         # H100 SXM dense bf16 (NVIDIA's data sheet)
 TPU_G = 0.05                      # tools/microbench_mxuquad.py:142
+# csrc/microbench_mxuquad.cu's visit_mma: rays a warpgroup, warpgroups a
+# tile at most, the warpgroups that fill the card, a chunk's columns
+TILE, MAX_PARTS, FILL_WARPGROUPS = 64, 4, 528
+CHUNK_COLS = {1: 64, 3: 32}
 
 RECORD = (Path(__file__).resolve().parents[2] / "docs"
           / "MICROBENCH_MXUQUAD_H100.json")
@@ -80,14 +95,16 @@ def tag(rows: int, mode: str, splits: int) -> str:
 
 
 def visit_mxuquad(salt, sphT, sph8, G, n_rays, rows, mode="vpu", splits=1,
-                  iters=ITERS, tap=None):
+                  iters=ITERS, tap=None, _parts=None):
     """M7: ``iters`` visits of ``rows`` spheres by ``n_rays`` fake rays (lane
     j % 512); out (n_rays / 512, 8, 512) = pay + float(krun).  ``vpu``: b
     and c from ``sphT`` (rows, 8) by the FP32 chain, as M5's ``mxu``;
     ``mxuquad``: from G (2 rows splits, 16) @ F, bf16 products summed in
     float32, b + salt * c * 1e-20 at visit c.  ``sph8`` (8, rows) holds the
     payload.  ``tap``: (2 rows, 512) float32 that receives tile 0's summed
-    product (b rows, then c rows) of visit 0 (``mxuquad`` only)."""
+    product (b rows, then c rows) of visit 0 (``mxuquad`` only).
+    ``_parts`` (1, 2 or 4; ``mxuquad`` on the card only) overrides the
+    kernel's partition ``mxuquad_parts(n_rays)``."""
     _expect(salt, (1,), F32, "salt")
     _expect(sphT, (rows, 8), F32, "M7 sphT")
     _expect(sph8, (8, rows), F32, "M7 sph8")
@@ -96,6 +113,8 @@ def visit_mxuquad(salt, sphT, sph8, G, n_rays, rows, mode="vpu", splits=1,
             or n_rays < T or n_rays % T or iters < 0):
         raise ValueError(f"M7: rows {rows}, mode {mode!r}, splits {splits}, "
                          f"{n_rays} rays, iters {iters}")
+    if _parts is not None and (mode != "mxuquad" or _parts not in (1, 2, 4)):
+        raise ValueError(f"M7: parts {_parts} for {mode}")
     if tap is not None:
         if mode != "mxuquad":
             raise ValueError("M7: only mxuquad has a product to tap")
@@ -107,10 +126,38 @@ def visit_mxuquad(salt, sphT, sph8, G, n_rays, rows, mode="vpu", splits=1,
         return visit_mxuquad_plain(salt, sphT, sph8, G, n_rays, rows, mode,
                                    splits, iters)
     out = torch.empty((n_rays // T, 8, T), dtype=F32, device=salt.device)
+    args = (rows, splits) + ((_parts,) if _parts else ()) + (
+        iters, n_rays, salt, sphT if mode == "vpu" else G, sph8, out, tap)
+    if _parts:
+        return _launch_parts(label(rows, mode, splits, n_rays), out, *args)
     return _launch(label(rows, mode, splits, n_rays), out, MODES.index(mode),
-                   rows, splits, iters, n_rays, salt,
-                   sphT if mode == "vpu" else G, sph8, out, tap,
-                   kernel="microbench_mxuquad")
+                   *args, kernel="microbench_mxuquad")
+
+
+def _launch_parts(lab, out, *args):
+    """``_launch`` through ``rt_microbench_mxuquad_launch_parts`` (mxuquad
+    with its partition given)."""
+    from ..render import _cuda
+    _cuda.load("microbench_mxuquad")
+    fn = _cuda._libs["microbench_mxuquad"].rt_microbench_mxuquad_launch_parts
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = fn(1, *(a if isinstance(a, int) else _ptr(a) for a in args), stream)
+    if rc != 0:
+        raise RuntimeError(f"{lab} launch failed: "
+                           + _cuda.error_string("microbench_mxuquad", rc))
+    LAUNCHES[lab] += 1
+    return out
+
+
+def mxuquad_parts(n_rays: int) -> int:
+    """The kernel's partition: the fewest warpgroups a tile of 64 rays, up
+    to 4, that make FILL_WARPGROUPS warpgroups (``mxuquad_parts``)."""
+    parts = 1
+    while parts < MAX_PARTS and (n_rays // TILE) * parts < FILL_WARPGROUPS:
+        parts *= 2
+    return parts
 
 
 def features(salt) -> torch.Tensor:
@@ -149,14 +196,29 @@ def product_magnitude(G, F, rows, splits) -> torch.Tensor:
 
 
 def product_tolerance(G, F, rows, splits) -> torch.Tensor:
-    """Bound on |kernel's summed product - float64|.  Each mma.sync adds 16
-    exact bf16 products in float32 with truncation, not rounding to
-    nearest: each of the 16 terms can lose up to 2^-23 of the largest
-    magnitude, and the result one more, so 17 * 2^-23 of the split's
-    magnitude sum; the float32 sum over splits rounds once an add, 2^-24
-    of the magnitudes so far."""
+    """Bound on |kernel's summed product - float64|.  Each wgmma k16 (from
+    zero) adds 16 exact bf16 products in float32 with truncation, not
+    rounding to nearest: each of the 16 terms can lose up to 2^-23 of the
+    largest magnitude, and the result one more, so 17 * 2^-23 of the
+    split's magnitude sum; the float32 sum over splits rounds once an add,
+    2^-24 of the magnitudes so far.  On the card the largest error is 0.046
+    to 0.089 of this bound on both inputs, the same as the warp-level
+    m16n8k16 product's (docs/M7_TURNS_H100.json)."""
     mag = product_magnitude(G, F, rows, splits)
     return (17 * 2.0 ** -23 + (splits - 1) * 2.0 ** -24) * mag
+
+
+def _product_bc(salt, G, rows, splits, bc):
+    return (product_plain(G, features(salt), rows, splits).float()
+            if bc is None else bc)
+
+
+def _visit_keys_at(salt, bc, rows, c, a, inv_a):
+    """(512,) int32: the least key over rows of visit ``c`` given ``bc``
+    and the fake rays' a and 1/a."""
+    b = bc[:rows] + (salt * _c(float(c), salt)) * _c(1e-20, salt)
+    return v5.visit_keys(b, bc[rows:], a, inv_a, v5.key_mask(rows, "mxu"),
+                         rows).amin(0)
 
 
 def visit_mxuquad_state_plain(salt, sphT, sph8, G, rows, mode="vpu",
@@ -169,20 +231,93 @@ def visit_mxuquad_state_plain(salt, sphT, sph8, G, rows, mode="vpu",
     if mode == "vpu":
         return v5.visit_v5_state_plain(salt, sphT, sph8, rows, "mxu",
                                        iters)[:2]
-    if bc is None:
-        bc = product_plain(G, features(salt), rows, splits).float()
-    _, _, _, _, _, _, a, inv_a = v5.fake_rays(salt)
-    mask = v5.key_mask(rows, "mxu")
+    bc = _product_bc(salt, G, rows, splits, bc)
+    a = v5.fake_rays(salt)[6:]
     krun = torch.full((T,), v5.MISS_KEY, dtype=I32, device=salt.device)
     pay = torch.zeros((8, T), dtype=F32, device=salt.device)
-    tiny = _c(1e-20, salt)
     for c in range(iters):
-        b = bc[:rows] + (salt * _c(float(c), salt)) * tiny
-        kmin = v5.visit_keys(b, bc[rows:], a, inv_a, mask, rows).amin(0)
+        kmin = _visit_keys_at(salt, bc, rows, c, *a)
         imp = kmin < krun
         pay = torch.where(imp, sph8[:, (kmin & (rows - 1)).long()], pay)
         krun = torch.minimum(krun, kmin)
     return krun, pay
+
+
+def visit_mxuquad_parts_model(salt, sph8, G, rows, splits, iters, parts,
+                              bc=None):
+    """The kernel's partition and fold: part i of ``parts`` takes visits
+    [iters i / parts, iters (i + 1) / parts) with its own least key from
+    the miss key; the parts fold by their minimum, and pay is sph8's column
+    of the winning row, or 0 where no key beat the miss key.  Equal to
+    ``visit_mxuquad_state_plain`` bit for bit: keys carry their row."""
+    bc = _product_bc(salt, G, rows, splits, bc)
+    a = v5.fake_rays(salt)[6:]
+    krun = torch.full((T,), v5.MISS_KEY, dtype=I32, device=salt.device)
+    for i in range(parts):
+        part = torch.full_like(krun, v5.MISS_KEY)
+        for c in range(iters * i // parts, iters * (i + 1) // parts):
+            part = torch.minimum(part, _visit_keys_at(salt, bc, rows, c, *a))
+        krun = torch.minimum(krun, part)
+    pay = torch.where(krun < v5.MISS_KEY, sph8[:, (krun & (rows - 1)).long()],
+                      torch.zeros_like(sph8[:, :1]))
+    return krun, pay
+
+
+def layout_model(rows: int, splits: int, G: np.ndarray | None = None) -> dict:
+    """visit_mma's index arithmetic on the CPU.  ``d``: (splits, 64 rays,
+    rows, 2) how often (warp, lane, chunk, register) of the accumulators
+    holds (split, ray, sphere row, b | c); ``a``: (64, 16) how often A's
+    register fragment holds (ray, feature); ``b``: with G given, G^T as
+    each chunk's descriptor reads it from the staged shared memory,
+    (splits, 16, 2 rows) float32, column 2 row + s (s = 0 b, 1 c)."""
+    n = CHUNK_COLS[splits]
+    d = np.zeros((splits, TILE, rows, 2), np.int64)
+    a = np.zeros((TILE, N_FEATURES), np.int64)
+    for w in range(4):
+        for lane in range(32):
+            q, p = lane // 4, lane % 4
+            for e in range(4):          # two bf16 of features k, k + 1
+                k = 2 * p + 8 * (e >> 1)
+                a[16 * w + q + 8 * (e & 1), [k, k + 1]] += 1
+            for ch in range(2 * rows // n):
+                for sp in range(splits):
+                    for e in range(n // 2):
+                        d[sp, 16 * w + q + 8 * ((e >> 1) & 1),
+                          ch * (n // 2) + 4 * (e >> 2) + p, e & 1] += 1
+    out = dict(d=d, a=a)
+    if G is not None:
+        out["b"] = _staged_b(G, rows, splits, n)
+    return out
+
+
+def _kmajor_byte(col: int, k: int) -> int:
+    """Byte of (column, k) in a K-major tile without swizzle: 8 k of a
+    column in 16 bytes, LBO 128 to the next 8 k, SBO 256 to the next 8
+    columns."""
+    return (col >> 3) * 256 + (k >> 3) * 128 + (col & 7) * 16 + (k & 7) * 2
+
+
+def _staged_b(G, rows, splits, n):
+    """Stage G as the kernel's first loop does (bf16 pairs by 32-bit word),
+    then read each chunk's B (16 x n) through its descriptor's start
+    (split sp at sp rows 64 bytes, chunk ch at ch n 32 bytes)."""
+    smem = np.full(splits * rows * 64 // 2, np.nan, np.float32)
+    Gb = bf16(torch.from_numpy(np.ascontiguousarray(G, np.float32))).numpy()
+    for i in range(splits * 2 * rows * (N_FEATURES // 2)):
+        gr, k = divmod(i, N_FEATURES // 2)
+        k *= 2
+        sp, s, row = gr // (2 * rows), (gr // rows) & 1, gr % rows
+        at = (sp * rows * 64 + _kmajor_byte(2 * row + s, k)) // 2
+        smem[at:at + 2] = Gb[gr, k:k + 2]
+    b = np.zeros((splits, N_FEATURES, 2 * rows), np.float32)
+    for sp in range(splits):
+        for ch in range(2 * rows // n):
+            start = sp * rows * 64 + ch * n * 32
+            for col in range(n):
+                for k in range(N_FEATURES):
+                    b[sp, k, ch * n + col] = smem[
+                        (start + _kmajor_byte(col, k)) // 2]
+    return b
 
 
 def visit_mxuquad_plain(salt, sphT, sph8, G, n_rays, rows, mode="vpu",

@@ -14,7 +14,12 @@ by wrapping ``jax.lax.dot_general`` and running the loop's body once.
   ``product_tolerance`` of the float64 product of the bf16-rounded
   operands, which the port builds (F from the fake rays, G from the
   spheres); and the visit after the product, given JAX's product, equal
-  to the port's plain visit given it.
+  to the port's plain visit given it;
+* the kernel's design on the CPU: its fragments and shared-memory layout
+  (``layout_model``) cover every (ray, sphere row, b | c) once, and its
+  partition of the visits folded by key (``visit_mxuquad_parts_model``)
+  equals the plain visit bit for bit; the model's constants are the
+  kernel's.
 
 The kernels are CUDA and run only on the card: the ``cuda`` cases skip
 here (``python -m pytest --noconftest -p no:cacheprovider
@@ -274,7 +279,8 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     for rows, mode, splits in mq.VARIANTS:
         inputs = _t(mq.mxuquad_inputs("seeded", rows, splits))
         tap = torch.empty(2 * rows, T) if mode == "mxuquad" else None
-        y = mq.visit_mxuquad(s, *inputs, 1024, rows, mode, splits, 2, tap)
+        y = mq.visit_mxuquad(s, *inputs, 1024, rows, mode, splits, 2, tap,
+                             _parts=2 if mode == "mxuquad" else None)
         assert torch.equal(y, mq.visit_mxuquad_plain(s, *inputs, 1024, rows,
                                                      mode, splits, 2))
         if tap is not None:
@@ -293,7 +299,13 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
            lambda: mq.visit_mxuquad(s, sphT, sph8, G, 1024, 32, "vpu", 1, 4,
                                     torch.empty(64, T)),
            lambda: mq.visit_mxuquad(s, sphT, sph8, G, 1024, 32, "mxuquad", 1,
-                                    4, torch.empty(32, T))]
+                                    4, torch.empty(32, T)),
+           lambda: mq.visit_mxuquad(s, sphT, sph8, G, 1024, 32, "mxuquad", 1,
+                                    4, _parts=3),
+           lambda: mq.visit_mxuquad(s, sphT, sph8, G, 1024, 32, "mxuquad", 1,
+                                    4, _parts=0),
+           lambda: mq.visit_mxuquad(s, sphT, sph8, G, 1024, 32, "vpu", 1, 4,
+                                    _parts=1)]
     for f in bad:
         with pytest.raises(ValueError):
             f()
@@ -314,6 +326,65 @@ def test_work_counts():
     assert nbytes == 4 * (192 * 16 + 8 * 32 + 8 * 1024 + 1)
     assert mq.bound_work(ops, flops) == (ops, mb.FP32_LANE_OPS_PER_S)
     assert mq.bound_work(1.0, 1e3) == (1e3, mq.BF16_FLOPS_PER_S)
+
+
+# ---------------------------------------------------------------- the design
+
+@pytest.mark.parametrize("rows", mq.ROWS)
+@pytest.mark.parametrize("splits", mq.SPLITS)
+def test_layout_covers_each_pair_once(rows, splits):
+    """visit_mma's accumulators hold each (split, ray, sphere row, b | c)
+    of a tile in exactly one (warp, lane, chunk, register); A's fragment
+    each (ray, feature) once; and each chunk's descriptor reads G^T, bf16,
+    with sphere row k's b and c in columns 2k and 2k + 1."""
+    G = mq.mxuquad_inputs("seeded", rows, splits)[2]
+    lay = mq.layout_model(rows, splits, G)
+    assert lay["d"].shape == (splits, mq.TILE, rows, 2)
+    assert (lay["d"] == 1).all()
+    assert (lay["a"] == 1).all()
+    Gb = mq.bf16(torch.from_numpy(G)).numpy()
+    n = 2 * rows
+    for sp in range(splits):
+        assert (lay["b"][sp][:, 0::2] == Gb[sp * n:sp * n + rows].T).all()
+        assert (lay["b"][sp][:, 1::2] == Gb[sp * n + rows:(sp + 1) * n].T).all()
+
+
+@pytest.mark.parametrize("rows,splits,which", [(32, 3, "tpu"),
+                                               (128, 1, "tpu"),
+                                               (64, 3, "seeded"),
+                                               (128, 3, "seeded")])
+@pytest.mark.parametrize("iters", [0, 1, 5, 7])
+def test_parts_model_equals_plain(rows, splits, which, iters):
+    """Visits split into 1-4 contiguous parts, each from the miss key, folded
+    by the least key with the payload of its row: krun and pay bit for bit
+    the plain visit's, also where the parts do not divide the visits, a
+    part has none, or there is no visit (the miss key, pay 0)."""
+    ins = _t(mq.mxuquad_inputs(which, rows, splits))
+    k, p = mq.visit_mxuquad_state_plain(_salt(), *ins, rows, "mxuquad",
+                                        splits, iters)
+    for parts in (1, 2, 3, 4):
+        km, pm = mq.visit_mxuquad_parts_model(_salt(), ins[1], ins[2], rows,
+                                              splits, iters, parts)
+        assert torch.equal(km, k)
+        assert torch.equal(pm.view(torch.int32), p.view(torch.int32))
+
+
+def test_partition_rule_and_constants_are_the_kernels():
+    """mxuquad_parts: 4 warpgroups a tile at the TPU's 8,192 rays, 2 at
+    16,896, 1 from 33,792 (528 warpgroups) on; TILE, MAX_PARTS,
+    FILL_WARPGROUPS, CHUNK_COLS and the descriptor's strides as in
+    csrc/microbench_mxuquad.cu."""
+    assert [mq.mxuquad_parts(n) for n in (512, 8192, 16896, 33280, 33792,
+                                          1 << 20)] == [4, 4, 2, 2, 1, 1]
+    src = (ROOT / "raytracers_tpu_torch" / "csrc"
+           / "microbench_mxuquad.cu").read_text()
+    assert f"kTile = {mq.TILE};" in src
+    assert f"kMaxParts = {mq.MAX_PARTS};" in src
+    assert f"kFillWarpgroups = {mq.FILL_WARPGROUPS};" in src
+    assert (f"kN = kSplits == 1 ? {mq.CHUNK_COLS[1]} : {mq.CHUNK_COLS[3]};"
+            in src)
+    assert "kLbo = 128, kSbo = 256;" in src
+    assert "mma.sync" not in src and "HMMA" not in src
 
 
 # ---------------------------------------------------------------- entry
@@ -345,24 +416,59 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("which", mq.INPUTS)
-@pytest.mark.parametrize("rows,mode,splits", mq.VARIANTS)
-def test_card_visit_against_plain(cuda, rows, mode, splits, which):
+# (visits, rays): the parts' edges (1 visit for 4 parts, an odd count, the
+# full 256), 4 parts a tile at 512 and 8,192 rays, 2 at 16,896, 1 at 34,304
+# (536 tiles, a partial second wave of 528 warpgroups)
+ITERS_RAYS = ((1, 512), (6, 8192), (37, 34304), (256, 8192), (256, 16896))
+
+
+def _card_check(cuda, rows, mode, splits, which, iters, n, parts=None):
     s = torch.tensor([SALT], device=cuda)
     inputs = tuple(x.to(cuda) for x in _t(mq.mxuquad_inputs(which, rows,
                                                             splits)))
-    tap = (torch.empty(2 * rows, T, device=cuda) if mode == "mxuquad"
-           else None)
-    lab = mq.label(rows, mode, splits, 2 * T)
+    tap = (torch.full((2 * rows, T), float("nan"), device=cuda)
+           if mode == "mxuquad" else None)
+    lab = mq.label(rows, mode, splits, n)
     n0 = mb.LAUNCHES[lab]
-    y = mq.visit_mxuquad(s, *inputs, 2 * T, rows, mode, splits, 6, tap)
+    y = mq.visit_mxuquad(s, *inputs, n, rows, mode, splits, iters, tap,
+                         _parts=parts)
     assert mb.LAUNCHES[lab] == n0 + 1
     if tap is not None:
         F = mq.features(s)
         gap = (tap.double() - mq.product_plain(inputs[2], F, rows, splits))
         assert bool((gap.abs() <= mq.product_tolerance(inputs[2], F, rows,
                                                        splits)).all())
-    ref = mq.visit_mxuquad_plain(s, *inputs, 2 * T, rows, mode, splits, 6,
+    ref = mq.visit_mxuquad_plain(s, *inputs, n, rows, mode, splits, iters,
                                  bc=tap)
     assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters,n", ITERS_RAYS)
+@pytest.mark.parametrize("which", mq.INPUTS)
+@pytest.mark.parametrize("rows,mode,splits", mq.VARIANTS)
+def test_card_visit_against_plain(cuda, rows, mode, splits, which, iters, n):
+    _card_check(cuda, rows, mode, splits, which, iters, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [1, 2, 4])
+@pytest.mark.parametrize("rows,splits", [(32, 1), (64, 3), (128, 1),
+                                         (128, 3)])
+def test_card_mxuquad_each_partition(cuda, rows, splits, parts):
+    """Every partition the kernel takes, whatever the rule would pick, at
+    a visit count that none of them divides."""
+    _card_check(cuda, rows, "mxuquad", splits, "seeded", 7, 8192, parts)
+
+
+@pytest.mark.cuda
+def test_card_mxuquad_sass_runs_on_wgmma(cuda):
+    """Every mxuquad instantiation (rows 32/64/128, splits 1/3) issues HGMMA
+    and no HMMA."""
+    from raytracers_tpu_torch.render import _cuda
+    _cuda.load("microbench_mxuquad")
+    counts, _ = mb.sass_counts(_cuda.build_info["microbench_mxuquad"]["path"])
+    mma = {f: c for f, c in counts.items() if "visit_mma" in f}
+    assert len(mma) == 6
+    for f, c in mma.items():
+        assert c.get("HGMMA", 0) > 0 and "HMMA" not in c, (f, c)
