@@ -438,12 +438,77 @@ def _bound(ops: float, nbytes: float, rate: float = FP32_LANE_OPS_PER_S):
                                                               "bytes")
 
 
+# The recounted bounds of M1, M3 and M6: the work counted on the pipe or
+# path that limits it, whatever implements it, at the rates of the CUDA C++
+# Programming Guide's table of arithmetic instruction throughput (results
+# per clock cycle per multiprocessor) for compute capability 9.0: "32-bit
+# floating-point add, multiply, multiply-add" 128 (fp32); "compare,
+# minimum, maximum" 64 (minmax); "32-bit integer add, extended-precision
+# add, subtract, extended-precision subtract" 64 (int_add); "32-bit
+# floating-point reciprocal, reciprocal square root, ..." 16 (mufu, the unit
+# that also issues sqrtf's MUFU.RSQ and, by its measured rate, FCHK); and
+# the L1 cache and shared memory's 128 bytes a cycle (l1_bytes).  Each row
+# is its own limit (the table does not say which rows share a unit), so the
+# bound is the slowest row, or HBM's bytes where that is slower.  The clock
+# is clocks.sm as every sampled window held it (docs/MICROBENCH_H100.json,
+# docs/MICROBENCH_V5_H100.json: 1980 MHz); at it, fp32's row is the data
+# sheet's 33.5e12 lane operations a second within 0.2%.
+SM_CLOCK_HZ = 1.98e9
+PIPE_PER_CYCLE = {"fp32": 128, "minmax": 64, "int_add": 64, "mufu": 16,
+                  "l1_bytes": 128}
+
+
+def pipe_bound(counts: dict, nbytes: float) -> tuple[float, str, str]:
+    """(ms, "operations" or "bytes", the limiting row) of work ``counts``
+    {row of ``PIPE_PER_CYCLE``: lane operations, or bytes for l1_bytes}
+    with ``nbytes`` read from and written to HBM: the slowest row at its
+    rate on every SM, or the bytes at HBM's rate where that is slower."""
+    terms = {row: c / (PIPE_PER_CYCLE[row] * N_SMS * SM_CLOCK_HZ) * 1e3
+             for row, c in counts.items()}
+    terms["hbm_bytes"] = nbytes / HBM_BYTES_PER_S * 1e3
+    row = max(terms, key=terms.get)
+    return terms[row], "bytes" if row.endswith("bytes") else "operations", row
+
+
 def fma_work(n, streams, iters, mode):
     """Lane operations (a square root or a division as one, as the data
     sheet counts, so the time over this bound is its cost in multiply-
     equivalents) and bytes of one M1 launch."""
     per_step = 2 if mode == "mul_add" else 1
     return n * (streams * iters * per_step + 2 * streams + 2), 4 * (n + 1)
+
+
+# Each M1 step's instructions by row, from the SASS in csrc/microbench.cu's
+# header: FP32 (FMUL, FADD, FFMA and their .FTZ forms) and MUFU.  A
+# division's FCHK is not in the table; it is counted on mufu's row because a
+# division chain takes one MUFU's time more than a 1/x chain, whose step is
+# the division's but for FCHK and FFMAs the FP32 pipe hides
+# (``fchk_lanes_per_cycle``).  The integer range tests and branches of the
+# slow-path checks go to other pipes, below MUFU's time.
+FMA_STEP_PIPES = {"mul_add": {"fp32": 2}, "fma": {"fp32": 1},
+                  "sqrt": {"fp32": 4, "mufu": 1},
+                  "rcp": {"fp32": 3, "mufu": 1},
+                  "div": {"fp32": 5, "mufu": 2}}
+
+
+def fma_pipes(n, streams, iters, mode):
+    """Lane operations by row of one M1 launch: the steps' SASS, and each
+    thread's set-up and sum (2 streams + 2) on fp32."""
+    steps = n * streams * iters
+    counts = {row: steps * c for row, c in FMA_STEP_PIPES[mode].items()}
+    counts["fp32"] += n * (2 * streams + 2)
+    return counts
+
+
+def fchk_lanes_per_cycle(m1) -> float:
+    """FCHK's rate in lanes a cycle an SM, from M1's 8-stream division and
+    1/x chains of one run (``run_m1``'s entries): the division's time over
+    1/x's is its FCHK, one a step, at the division entry's sampled clock."""
+    by = {(e["mode"], e["streams"]): e for e in m1}
+    div, rcp = by["div", 8], by["rcp", 8]
+    mhz = div["clocks_sm_mhz"] or SM_CLOCK_HZ / 1e6
+    steps = FMA_N * 8 * div["iters"]
+    return steps / ((div["ms"] - rcp["ms"]) * 1e-3) / (N_SMS * mhz * 1e6)
 
 
 def dot_work(kind, route, iters, grid):
@@ -468,6 +533,15 @@ def reduce_work(iters, grid, itemsize=4):
     rate."""
     return (grid * iters * (ROWS * T + (ROWS - 1) * T + T),
             itemsize * (ROWS * T + grid * T))
+
+
+def reduce_pipes(iters, grid, dtype):
+    """Lane operations by row of one M3 launch: 127 minima a column and
+    iteration on minmax; the 128 increments and the running add on fp32
+    (float32 keys) or int_add (int32)."""
+    tiles = grid * iters
+    return {"minmax": tiles * (ROWS - 1) * T,
+            "fp32" if dtype == "f32" else "int_add": tiles * (ROWS + 1) * T}
 
 
 # lane operations of one (ray, sphere row) test of M4, each float32 add,
@@ -583,9 +657,16 @@ def _bit_equal(label, out, ref):
 # ---------------------------------------------------------------- runs
 
 def _entry(probe, name, label, ms, runs, work, plain_ms, max_err,
-           library_ms=None, **extra):
+           library_ms=None, pipes=None, **extra):
+    """A probe record's entry.  ``work`` is (lane operations, bytes, rate);
+    with ``pipes`` (a row count for ``pipe_bound``) the bound is recounted
+    by row, and the one from ``work`` stays beside it as ``old_*``."""
     ops, nbytes, rate = work
     bound_ms, bound_by = _bound(ops, nbytes, rate)
+    if pipes is not None:
+        extra.update(old_bound_ms=bound_ms, old_bound_by=bound_by,
+                     old_share=bound_ms / ms, pipes=pipes)
+        bound_ms, bound_by, extra["bound_row"] = pipe_bound(pipes, nbytes)
     return dict(probe=probe, name=name, label=label, ms=ms, runs=runs,
                 ops=ops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
                 share=bound_ms / ms, plain_ms=plain_ms, max_abs_err=max_err,
@@ -619,6 +700,7 @@ def run_m1(dev, clocks: ClockSampler | None, log=print):
             clk = statistics.median(mhz) if mhz else None
             e = _entry("M1", f"{label} ({iters} iters)", label, ms, runs,
                        (ops, nbytes, FP32_LANE_OPS_PER_S), plain_ms, err,
+                       pipes=fma_pipes(FMA_N, streams, iters, mode),
                        streams=streams, iters=iters, mode=mode,
                        lane_ops_per_s=rate,
                        share_of_peak=rate / FP32_LANE_OPS_PER_S,
@@ -632,7 +714,9 @@ def run_m1(dev, clocks: ClockSampler | None, log=print):
             log(f"[probe] {label}: {ms:.4f} ms ({runs} runs), "
                 f"{rate:.4e} lane ops/s = {rate / FP32_LANE_OPS_PER_S:.4f} "
                 f"of 33.5e12, {e['per_sm_per_cycle']} /SM/cycle at "
-                f"{clk} MHz; plain {plain_ms:.2f} ms, err {err}")
+                f"{clk} MHz; bound {e['bound_ms']:.4f} on {e['bound_row']} "
+                f"({e['share']:.4f}; old {e['old_bound_ms']:.4f}, "
+                f"{e['old_share']:.4f}); plain {plain_ms:.2f} ms, err {err}")
             out.append(e)
     return out
 
@@ -797,13 +881,15 @@ def run_m3(dev, log=print):
             e = _entry("M3", label, label, times["tpu"], runs,
                        (*reduce_work(REDUCE_ITERS, REDUCE_GRID),
                         FP32_LANE_OPS_PER_S), refs["tpu"][1], 0.0, lib_ms,
+                       pipes=reduce_pipes(REDUCE_ITERS, REDUCE_GRID, dtype),
                        dtype=dtype, way=way, ms_seeded=times["seeded"],
                        ns_per_reduce=times["tpu"] * 1e6
                        / (REDUCE_GRID * REDUCE_ITERS))
             log(f"[probe] {label}: {e['ms']:.4f} ms ({e['ns_per_reduce']:.2f}"
                 f" ns a (128,256) minimum; seeded {e['ms_seeded']:.4f}), "
-                f"bound {e['bound_ms']:.4f}, amin {lib_ms:.4f} ms, "
-                "bit-equal")
+                f"bound {e['bound_ms']:.4f} on {e['bound_row']} "
+                f"({e['share']:.4f}; old {e['old_bound_ms']:.4f}, "
+                f"{e['old_share']:.4f}), amin {lib_ms:.4f} ms, bit-equal")
             out.append(e)
     return out
 
@@ -860,8 +946,10 @@ def run(device=None, log=print) -> dict:
         m1 = run_m1(dev, clocks, log)
         samples = [m for _, m, _ in clocks.samples]
     weights = mul_equivalents(m1)
+    fchk = fchk_lanes_per_cycle(m1)
     log(f"[probe] sqrtf {weights['sqrt']:.3f}, division {weights['div']:.3f},"
-        f" 1/x {weights['rcp']:.3f} multiply-equivalents (8 streams)")
+        f" 1/x {weights['rcp']:.3f} multiply-equivalents (8 streams); FCHK "
+        f"{fchk:.2f} lanes a cycle an SM")
     m2 = run_m2(dev, log)
     m3 = run_m3(dev, log)
     m4 = run_m4(dev, weights, log)
@@ -874,7 +962,8 @@ def run(device=None, log=print) -> dict:
                 peaks=dict(fp32_lane_ops_per_s=FP32_LANE_OPS_PER_S,
                            tf32_flops_per_s=TF32_FLOPS_PER_S,
                            hbm_bytes_per_s=HBM_BYTES_PER_S),
-                mul_equivalents=weights, entries=m1 + m2 + m3 + m4)
+                mul_equivalents=weights, fchk_lanes_per_cycle=fchk,
+                entries=m1 + m2 + m3 + m4)
 
 
 def cpu_smoke(log=print) -> dict:

@@ -295,6 +295,15 @@ def gather_work(n_lanes, chunks, iters):
             4 * (8 * chunks * 128 + n_lanes + 1))
 
 
+# A lane-step brings its slot's 8 fields, 32 bytes, through L1 or shared
+# memory, whatever the layout: the recounted bound (``pipe_bound``).
+GATHER_STEP_BYTES = 32
+
+
+def gather_pipes(n_lanes, iters):
+    return {"l1_bytes": n_lanes * iters * GATHER_STEP_BYTES}
+
+
 # ---------------------------------------------------------------- runs
 
 def _dev_inputs(arrays, dev):
@@ -392,14 +401,17 @@ def run_m6(dev, log=print):
                     e = _entry("M6", name, label, ms, runs,
                                (*gather_work(n_lanes, chunks, GATHER_ITERS),
                                 FP32_LANE_OPS_PER_S), plain_ms, 0.0, lib_ms,
+                               pipes=gather_pipes(n_lanes, GATHER_ITERS),
                                chunks=chunks, way=way, lanes=n_lanes,
                                input=which,
                                ns_per_lane_step=ms * 1e6
                                / (n_lanes * GATHER_ITERS))
                     log(f"[probe] {name}: {ms:.4f} ms "
                         f"({e['ns_per_lane_step']:.5f} ns a lane-step), bound"
-                        f" {e['bound_ms']:.4f} ({e['share']:.4f}), indexing "
-                        f"{lib_ms:.4f} ms; bit-equal")
+                        f" {e['bound_ms']:.4f} on {e['bound_row']} "
+                        f"({e['share']:.4f}; old {e['old_bound_ms']:.4f}, "
+                        f"{e['old_share']:.4f}), indexing {lib_ms:.4f} ms; "
+                        "bit-equal")
                     out.append(e)
     return out
 

@@ -447,6 +447,59 @@ def test_work_counts():
     assert mb._bound(33.5e9, 0.0) == (pytest.approx(1.0), "operations")
 
 
+def test_recounted_bounds_by_row():
+    """The recounted bounds: each row of the CUDA C++ Programming Guide's
+    throughput table (compute capability 9.0) on 132 SMs at 1980 MHz; the
+    slowest row bounds.  M3: float32 keys by their 127 minima a column at
+    64 a cycle, int32 by their 129 integer adds at 64; M1: a root or 1/x
+    one MUFU at 16 a cycle a step, a division two (FCHK timed at MUFU's
+    rate), the uncontracted loop two FP32 instructions at 128."""
+    sm_s = 132 * 1.98e9
+    nbytes = 4 * (LANE * T + 16 * T)
+    ms, by, row = mb.pipe_bound(mb.reduce_pipes(512, 16, "f32"), nbytes)
+    assert (by, row) == ("operations", "minmax")
+    assert ms == pytest.approx(16 * 512 * 127 * T / (64 * sm_s) * 1e3)
+    assert ms == pytest.approx(0.01592, abs=1e-5)
+    ms, by, row = mb.pipe_bound(mb.reduce_pipes(512, 16, "int32"), nbytes)
+    assert row == "int_add"
+    assert ms == pytest.approx(16 * 512 * 129 * T / (64 * sm_s) * 1e3)
+    steps = mb.FMA_N * 8 * 256
+    for mode, mufu in (("sqrt", 1), ("rcp", 1), ("div", 2)):
+        ms, by, row = mb.pipe_bound(mb.fma_pipes(mb.FMA_N, 8, 256, mode),
+                                    4 * (mb.FMA_N + 1))
+        assert (by, row) == ("operations", "mufu")
+        assert ms == pytest.approx(mufu * steps / (16 * sm_s) * 1e3)
+    ms, _, row = mb.pipe_bound(mb.fma_pipes(mb.FMA_N, 8, 256, "mul_add"), 0)
+    assert row == "fp32" and ms == pytest.approx(
+        (2 * steps + mb.FMA_N * 18) / (128 * sm_s) * 1e3)
+    # at 1980 MHz fp32's row is the data sheet's lane-operation rate
+    assert 128 * sm_s == pytest.approx(mb.FP32_LANE_OPS_PER_S, rel=2e-3)
+    # bytes bound where HBM is the slowest row
+    assert mb.pipe_bound({"fp32": 1}, 3.35e9) == (
+        pytest.approx(1.0), "bytes", "hbm_bytes")
+
+
+def test_entry_keeps_the_old_bound_beside_the_recount():
+    e = mb._entry("M3", "x", "x", 0.05, 3,
+                  (*mb.reduce_work(512, 16), mb.FP32_LANE_OPS_PER_S), 1.0,
+                  0.0, pipes=mb.reduce_pipes(512, 16, "f32"))
+    assert e["old_bound_ms"] == pytest.approx(0.016026, abs=1e-6)
+    assert e["old_share"] == pytest.approx(e["old_bound_ms"] / 0.05)
+    assert e["bound_row"] == "minmax" and e["bound_by"] == "operations"
+    assert e["share"] == pytest.approx(e["bound_ms"] / 0.05)
+    plain = mb._entry("M2", "x", "x", 0.05, 3, (1.0, 0.0, 1.0), 1.0, 0.0)
+    assert "old_bound_ms" not in plain
+
+
+def test_fchk_rate_from_the_record():
+    """FCHK's rate, from the record's 8-stream division and 1/x chains:
+    one MUFU's rate (16 lanes a cycle an SM) within 5%, which is why the
+    division's bound counts it on mufu's row."""
+    rec = json.loads(mb.RECORD.read_text())
+    m1 = [e for e in rec["entries"] if e["probe"] == "M1"]
+    assert mb.fchk_lanes_per_cycle(m1) == pytest.approx(16.0, rel=0.05)
+
+
 # ---------------------------------------------------------------- entry
 
 def test_cpu_entry_point_times_nothing_and_writes_nothing(capsys):

@@ -319,6 +319,18 @@ def test_work_counts():
                                            4 * (8 * 512 + 1024 + 1))
 
 
+def test_recounted_gather_bound():
+    """M6's recounted bound: 32 bytes a lane-step through L1 or shared
+    memory at 128 bytes a cycle an SM, 132 SMs, 1980 MHz; at 1M lanes and
+    64 steps 2^31 bytes, 0.0642 ms, far above its HBM bytes."""
+    nbytes = v5.gather_work(1 << 20, 4, 64)[1]
+    ms, by, row = mb.pipe_bound(v5.gather_pipes(1 << 20, 64), nbytes)
+    assert (by, row) == ("bytes", "l1_bytes")
+    assert ms == pytest.approx(2.0 ** 31 / (128 * 132 * 1.98e9) * 1e3)
+    assert ms == pytest.approx(0.0642, abs=1e-4)
+    assert nbytes / 3.35e12 * 1e3 < ms / 10
+
+
 def test_width_ratios():
     m5 = [dict(input="tpu", payload="mxu", way="thread", rays=512, rows=r,
                ms=float(r)) for r in v5.ROWS]
