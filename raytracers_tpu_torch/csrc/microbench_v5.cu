@@ -24,12 +24,15 @@
 //                           sums the 8 fields of slot (lane*37 + i) mod W
 //                           of an (8, W) table, W = chunks * 128, in field
 //                           order ((0 + f0) + f1) + ... + f7, and adds the
-//                           sum to its running sum.  Through __ldg, or from
-//                           a copy the block stages in shared memory: 37 is
-//                           odd, so the 32 lanes of a warp read 32 banks.
-//                           The TPU probe's salt * 0.0 changes no value but
-//                           -0, which no table of the probes holds, so the
-//                           kernel leaves it out.
+//                           sum to its running sum.  Through __ldg from the
+//                           slot-major (W, 8) copy, two 16-byte loads a
+//                           lane-step as K1 reads its winner's payload, or
+//                           from a copy the block stages in shared memory,
+//                           field-major (8 words) or slot-major and padded
+//                           (two 16-byte loads).  The TPU probe's
+//                           salt * 0.0 changes no value but -0, which no
+//                           table of the probes holds, so the kernel leaves
+//                           it out.
 //
 // Each variant is bit-equal to its plain torch version (probes/
 // microbench_v5.py): the arithmetic is written as IEEE intrinsics in the
@@ -38,8 +41,10 @@
 // What bounds each on this card: both are issue-bound by design.  M5 moves
 // a few KB of table and writes 32 bytes a ray; a (ray, row) test is 32
 // lane operations and a square root.  M6 reads at most 16 KB of table and
-// writes 4 bytes a lane; a lane-step is 12 lane operations, 8 of them the
-// field sums, and 8 loads from L1 or shared memory.
+// writes 4 bytes a lane; a lane-step brings its slot's 32 bytes through L1
+// or shared memory, 128 bytes a cycle an SM, which bounds it (0.0642 ms at
+// 1M lanes, 1980 MHz); its 9 adds and the slot's increment and mask are
+// far below that on the FP32 and integer pipes.
 //
 // Layouts: salt (1,) f32.  M5 sphT (rows, 8) f32 rows [cx cy cz . . . . r^2],
 // sph8 (8, rows) f32 payload fields, out (n/512, 8, 512) f32 =
@@ -174,41 +179,119 @@ int launch_visit(int way, int rows, const float* salt, const float* sphT,
 }
 
 // ------------------------------------------------------------------ M6
-template <bool kSmem>
+// The width W is a template (128 or 512 slots), so a lane's slot starts at
+// (j * 37) & (W - 1) and steps by an increment and a mask: no division.
+// Ways (the C entry's codes; 0 was the field-major __ldg route, which K1
+// does not read):
+//   1 shared memory, field-major: the block stages the (8, W) table as it
+//     is and reads 8 words a lane-step; 37 is odd, so a warp's 32 lanes
+//     read 32 banks;
+//   2 __ldg, slot-major: the (W, 8) copy the wrapper makes, each slot's 8
+//     fields as two float4 (16-byte) loads, as K1 reads its winner's
+//     payload (csrc/megakernel.cu);
+//   3 shared memory, slot-major: the block stages slot s's fields at words
+//     12s .. 12s + 7 and reads them as two float4; the 16 bytes of padding
+//     a slot put the 8 lanes of a quarter-warp, 37 slots apart, on 8
+//     distinct groups of 4 banks (3 * 37 is 7 mod 8).
+// Blocks of the shared routes loop over tiles of 256 lanes, so that the
+// table is staged once for each block the card holds at a time.
+enum { kGatherSmemFields = 1, kGatherLdgSlots = 2, kGatherSmemSlots = 3 };
+constexpr int kSlotWords = 12;
+
+template <int kWidth, int kWay>
 __global__ void __launch_bounds__(256)
 gather_probe(const float* __restrict__ tbl, float* __restrict__ out,
-             int iters, int width, int n) {
-  extern __shared__ float stbl[];
-  if constexpr (kSmem) {
-    for (int i = threadIdx.x; i < 8 * width; i += blockDim.x)
-      stbl[i] = __ldg(tbl + i);
+             int iters, int n) {
+  extern __shared__ __align__(16) float stbl[];
+  if constexpr (kWay != kGatherLdgSlots) {
+    for (int i = threadIdx.x; i < 8 * kWidth; i += blockDim.x) {
+      const int f = i / kWidth, s = i % kWidth;
+      stbl[kWay == kGatherSmemFields ? i : s * kSlotWords + f] =
+          __ldg(tbl + i);
+    }
     __syncthreads();
   }
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const int j = g % kT;
-  float acc = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    const int slot = (j * 37 + i) % width;
-    float s = 0.0f;
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < n;
+       g += gridDim.x * blockDim.x) {
+    int slot = (g % kT) * 37 & (kWidth - 1);
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < iters; ++i) {
+      float v[8];
+      if constexpr (kWay == kGatherSmemFields) {
 #pragma unroll
-    for (int f = 0; f < 8; ++f) {
-      const float v = kSmem ? stbl[f * width + slot]
-                            : __ldg(tbl + f * width + slot);
-      s = __fadd_rn(s, v);
+        for (int f = 0; f < 8; ++f) v[f] = stbl[f * kWidth + slot];
+      } else {
+        float4 lo, hi;
+        if constexpr (kWay == kGatherLdgSlots) {
+          const float4* p = reinterpret_cast<const float4*>(tbl) + 2 * slot;
+          lo = __ldg(p);
+          hi = __ldg(p + 1);
+        } else {
+          const float4* p =
+              reinterpret_cast<const float4*>(stbl + slot * kSlotWords);
+          lo = p[0];
+          hi = p[1];
+        }
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+      }
+      float s = 0.0f;
+#pragma unroll
+      for (int f = 0; f < 8; ++f) s = __fadd_rn(s, v[f]);
+      acc = __fadd_rn(acc, s);
+      slot = (slot + 1) & (kWidth - 1);
     }
-    acc = __fadd_rn(acc, s);
+    out[g] = acc;
   }
-  out[g] = acc;
+}
+
+template <int kWidth, int kWay>
+int launch_gather(const float* tbl, float* out, int iters, int n,
+                  cudaStream_t st) {
+  const int tiles = (n + 255) / 256;
+  if constexpr (kWay == kGatherLdgSlots) {
+    gather_probe<kWidth, kWay><<<tiles, 256, 0, st>>>(tbl, out, iters, n);
+  } else {
+    constexpr size_t smem =
+        sizeof(float) * kWidth * (kWay == kGatherSmemFields ? 8 : kSlotWords);
+    static int resident = 0;     // blocks the card holds at a time
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gather_probe<kWidth, kWay>, 256, smem);
+      resident = sms * per_sm;
+    }
+    const int blocks = resident > 0 && resident < tiles ? resident : tiles;
+    gather_probe<kWidth, kWay><<<blocks, 256, smem, st>>>(tbl, out, iters, n);
+  }
+  return 0;
+}
+
+template <int kWidth>
+int launch_gather_way(int way, const float* tbl, float* out, int iters,
+                      int n, cudaStream_t st) {
+  switch (way) {
+    case kGatherSmemFields:
+      return launch_gather<kWidth, kGatherSmemFields>(tbl, out, iters, n, st);
+    case kGatherLdgSlots:
+      return launch_gather<kWidth, kGatherLdgSlots>(tbl, out, iters, n, st);
+    case kGatherSmemSlots:
+      return launch_gather<kWidth, kGatherSmemSlots>(tbl, out, iters, n, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // One entry point for both probes.  probe 0 (M5): way (0 thread, 1 warp),
 // width = rows (32, 64, 128), payload (0 mxu, 1 defer), size = rays, in0 =
-// sphT, in1 = sph8; probe 1 (M6): way (0 __ldg, 1 shared memory), width =
-// chunks (1 or 4), size = lanes, in0 = the table.  size is a multiple of
-// 512.  The salt of M6 is not read.
+// sphT, in1 = sph8; probe 1 (M6): way (1 shared memory field-major, 2
+// __ldg slot-major, 3 shared memory slot-major), width = chunks (1 or 4),
+// size = lanes, in0 = the table, (8, W) for ways 1 and 3 and (W, 8) for
+// way 2.  size is a multiple of 512.  The salt of M6 is not read.
 extern "C" int rt_microbench_v5_launch(int probe, int way, int width,
                                        int payload, int iters, int size,
                                        const float* salt, const float* in0,
@@ -228,14 +311,10 @@ extern "C" int rt_microbench_v5_launch(int probe, int way, int width,
     else
       return (int)cudaErrorInvalidValue;
   } else if (probe == 1) {
-    if (width != 1 && width != 4) return (int)cudaErrorInvalidValue;
-    const int w = width * 128;
-    const int blocks = (size + 255) / 256;
-    if (way == 0)
-      gather_probe<false><<<blocks, 256, 0, st>>>(in0, out, iters, w, size);
-    else if (way == 1)
-      gather_probe<true><<<blocks, 256, 8 * w * sizeof(float), st>>>(
-          in0, out, iters, w, size);
+    if (width == 1)
+      rc = launch_gather_way<128>(way, in0, out, iters, size, st);
+    else if (width == 4)
+      rc = launch_gather_way<512>(way, in0, out, iters, size, st);
     else
       return (int)cudaErrorInvalidValue;
   } else {

@@ -3,7 +3,7 @@
 It builds ``csrc/microbench.cu`` as it stands (``change``) and the
 ``csrc/microbench.cu`` of another checkout under ``--parent DIR``
 (``parent``, e.g. the parent commit unpacked with ``git archive``), one
-nvcc each, started together, into ``build/m2_turns/``.  Then it runs
+nvcc each, started together (``turns.build``).  Then it runs
 ``microbench.run_m2`` on each build in turns (parent, change, change,
 parent, twice): every M2 kind and route timed as phase 10 of
 ``chip_smoke.py`` times it, with ``torch.bmm`` at the route's precision
@@ -23,63 +23,30 @@ M4 and M1's weights stay as they are.  It needs the card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-from ..render import _cuda
 from . import microbench as mb
-
-OUT_DIR = _cuda.BUILD_DIR.parent / "m2_turns"
-ORDER = ("parent", "change", "change", "parent") * 2
-
-
-def build(parent: Path, kernel: str = "microbench") -> dict:
-    """{"parent", "change"}: (the loaded library, its path) of ``kernel``'s
-    source (``render/_cuda.KERNELS``) in ``parent`` and in this checkout,
-    one nvcc a source, started together."""
-    src, fn_name, argtypes = _cuda.KERNELS[kernel]
-    sources = {"parent": parent / "raytracers_tpu_torch" / "csrc" / src,
-               "change": _cuda.source(kernel)}
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in sources.items():
-        so = OUT_DIR / f"{kernel}_{name}.so"
-        procs[name] = (so, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
-        lib = ctypes.CDLL(str(so.resolve()))
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-        libs[name] = (lib, so)
-    return libs
-
+from .turns import ORDER, build, medians, use
 
 def run(libs: dict, log=print) -> dict:
-    """``run_m2`` on each build in ``libs`` (``build``'s) in turns; the
-    record of the run: every turn's entries and a row a kind and route."""
+    """``run_m2`` on each build in ``libs`` (``turns.build``'s) in turns;
+    the record of the run: every turn's entries and a row a kind and
+    route."""
     dev = torch.device("cuda")
     card = mb._smi("name,power.limit")
     log(f"[m2] {card}")
     turns = []
     for name in ORDER:
-        _cuda._libs["microbench"] = libs[name][0]
+        use(libs, name)
         log(f"[m2] turn {len(turns) + 1} of {len(ORDER)}: {name}")
         turns.append(dict(build=name, entries=mb.run_m2(
             dev, log, hold=name == "change")))
-    _cuda._libs["microbench"] = libs["change"][0]
+    use(libs, "change")
     rows = []
     for j, first in enumerate(turns[0]["entries"]):
         row = {k: first[k] for k in ("kind", "route", "bound_ms", "bound_by",
@@ -95,8 +62,7 @@ def run(libs: dict, log=print) -> dict:
                                         e["max_abs_err"])
             row["err_share_of_product_term"][n] = e[
                 "err_share_of_product_term"]
-        row["median_ms"] = {n: statistics.median(t)
-                            for n, t in row["ms"].items()}
+        row["median_ms"] = medians(row["ms"])
         row["share"] = {n: row["bound_ms"] / m
                         for n, m in row["median_ms"].items()}
         log(f"[m2] {first['label']}: " + "; ".join(
@@ -105,8 +71,8 @@ def run(libs: dict, log=print) -> dict:
             + f"; bmm ({row['library_precision']}) "
             f"{statistics.median(row['library_ms']):.4f} ms")
         rows.append(row)
-    sass = {n: {f: c for f, c in mb.sass_counts(str(so))[0].items()
-                if "dot_" in f} for n, (_, so) in libs.items()}
+    sass = {n: {f: c for f, c in mb.sass_counts(str(b["microbench"][1]))[0]
+                .items() if "dot_" in f} for n, b in libs.items()}
     return dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                 script="raytracers_tpu_torch/probes/m2_turns.py",
                 order=ORDER, rows=rows, sass=sass, turns=turns)
@@ -139,14 +105,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("m2_turns measures on the card; no CUDA device")
-    libs = build(args.parent)
+    libs = build(args.parent, "microbench")
     rec = run(libs)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rec, indent=1) + "\n")
         print(f"[m2] wrote {args.out}")
     if args.record is not None:
-        rerecord(args.record, rec, libs["change"][1])
+        rerecord(args.record, rec, libs["change"]["microbench"][1])
     return 0
 
 

@@ -4,7 +4,7 @@ turns on one card.
 It builds ``csrc/microbench_mxuquad.cu`` as it stands (``change``) and the
 one of another checkout under ``--parent DIR`` (``parent``, e.g. the
 parent commit unpacked with ``git archive``), one nvcc each, started
-together (``m2_turns.build``).  M1's weights, which the bounds charge for
+together (``turns.build``).  M1's weights, which the bounds charge for
 a root and 1/a, are measured once.  Then ``microbench_mxuquad.run_m7``
 runs on each build in turns (parent, change, change, parent, twice): the
 TPU probe's five variants on both inputs at 8,192 and 1,048,576 rays,
@@ -34,13 +34,11 @@ from pathlib import Path
 
 import torch
 
-from ..render import _cuda
-from . import m2_turns
 from . import microbench as mb
 from . import microbench_mxuquad as mq
+from .turns import ORDER, build, medians, use
 
 KERNEL = "microbench_mxuquad"
-ORDER = m2_turns.ORDER
 PARTS = (1, 2, 4)
 
 
@@ -91,7 +89,7 @@ def partitions(dev, log=print) -> list:
 
 
 def run(libs: dict, log=print) -> dict:
-    """``run_m7`` on each build in ``libs`` (``m2_turns.build``'s) in turns,
+    """``run_m7`` on each build in ``libs`` (``turns.build``'s) in turns,
     then ``iters_ratio`` and ``partitions`` on the change's; the record of
     the call: every turn's entries and a row a variant, input and size."""
     dev = torch.device("cuda")
@@ -100,10 +98,10 @@ def run(libs: dict, log=print) -> dict:
     weights = mb.measure_mul_equivalents(dev)
     turns = []
     for name in ORDER:
-        _cuda._libs[KERNEL] = libs[name][0]
+        use(libs, name)
         log(f"[m7] turn {len(turns) + 1} of {len(ORDER)}: {name}")
         turns.append(dict(build=name, entries=mq.run_m7(dev, weights, log)))
-    _cuda._libs[KERNEL] = libs["change"][0]
+    use(libs, "change")
     rows = []
     for j, first in enumerate(turns[0]["entries"]):
         row = {k: first[k] for k in ("name", "rows", "mode", "splits", "rays",
@@ -117,8 +115,7 @@ def run(libs: dict, log=print) -> dict:
                 row["err_share_of_bound"][n] = max(
                     row["err_share_of_bound"].get(n, 0.0),
                     e["err_share_of_bound"])
-        row["median_ms"] = {n: statistics.median(t)
-                            for n, t in row["ms"].items()}
+        row["median_ms"] = medians(row["ms"])
         row["share"] = {n: row["bound_ms"] / m
                         for n, m in row["median_ms"].items()}
         row["parent_over_change"] = (row["median_ms"]["parent"]
@@ -132,8 +129,8 @@ def run(libs: dict, log=print) -> dict:
         rows.append(row)
     ratio = iters_ratio(dev, log)
     parts = partitions(dev, log)
-    sass = {n: {f: c for f, c in mb.sass_counts(str(so))[0].items()
-                if "visit_" in f} for n, (_, so) in libs.items()}
+    sass = {n: {f: c for f, c in mb.sass_counts(str(b[KERNEL][1]))[0].items()
+                if "visit_" in f} for n, b in libs.items()}
     return dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                 script="raytracers_tpu_torch/probes/m7_turns.py",
                 mul_equivalents=weights, order=ORDER, rows=rows,
@@ -168,14 +165,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("m7_turns measures on the card; no CUDA device")
-    libs = m2_turns.build(args.parent, KERNEL)
+    libs = build(args.parent, KERNEL)
     rec = run(libs)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rec, indent=1) + "\n")
         print(f"[m7] wrote {args.out}")
     if args.record is not None:
-        rerecord(args.record, rec, libs["change"][1])
+        rerecord(args.record, rec, libs["change"][KERNEL][1])
     return 0
 
 

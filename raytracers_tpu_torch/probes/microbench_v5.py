@@ -50,9 +50,9 @@ import torch
 from .. import vec
 from ..utils.platform import resolve_device
 from .microbench import (F32, I32, FP32_LANE_OPS_PER_S, SALT, ClockSampler,
-                         _bit_equal, _c, _entry, _expect, _launch, _on_card,
-                         _plain_timed, _smi, _timed, measure_mul_equivalents,
-                         sass_counts)
+                         _bit_equal, _c, _device_entry, _device_note, _entry,
+                         _expect, _launch, _on_card, _plain_timed, _smi,
+                         _timed, measure_mul_equivalents, sass_counts)
 
 T = 512                           # the TPU probe's lane width
 GRID = 16                         # its grid: 8,192 rays or lanes
@@ -62,7 +62,12 @@ ROWS = (32, 64, 128)
 PAYLOADS = ("mxu", "defer")
 CHUNKS = (4, 1)
 VISIT_WAYS = ("thread", "warp")
-GATHER_WAYS = ("ldg", "smem")
+GATHER_WAYS = ("ldg", "smem", "smem_slots")
+# way -> (the C entry's way code, whether the kernel reads the slot-major
+# (W, 8) copy): __ldg from the copy, K1's layout; the table staged in
+# shared memory field-major, or slot-major and padded
+GATHER_ROUTES = {"ldg": (2, True), "smem": (1, False),
+                 "smem_slots": (3, False)}
 RAYS = (GRID * T, 256 * 256, 1 << 20)   # the TPU's grid, 256^2, ~1000^2
 LANES = (GRID * T, 1 << 20)
 INPUTS = ("tpu", "seeded")
@@ -212,25 +217,37 @@ def gather_label(chunks: int, way: str, n_lanes: int) -> str:
     return f"M6 paygather_c{chunks} {way} {n_lanes}"
 
 
-def gather(salt, tbl, n_lanes, chunks, way="ldg", iters=GATHER_ITERS):
+def gather(salt, tbl, n_lanes, chunks, way="ldg", iters=GATHER_ITERS,
+           routes=None):
     """M6: for ``iters`` steps i, each lane (j % 512) adds the sum of the 8
     fields, in field order, of slot (lane * 37 + i) mod (chunks * 128) of
     ``tbl`` (8, chunks * 128) to a running sum; out (n_lanes / 512, 1, 512).
-    ``way``: the table through ``__ldg`` or staged in shared memory.  The
-    TPU probe adds salt * 0.0 to the table, which changes no value but -0;
-    neither version does."""
+    ``way`` (``GATHER_ROUTES``): ``ldg`` reads the slot-major copy
+    (``slot_major``, made in the call) through ``__ldg``; ``smem`` and
+    ``smem_slots`` stage the table in shared memory, field-major or
+    slot-major.  ``routes`` maps ways to another build's codes (a probe of
+    two builds in turns).  The TPU probe adds salt * 0.0 to the table,
+    which changes no value but -0; neither version does."""
+    routes = GATHER_ROUTES if routes is None else routes
     _expect(salt, (1,), F32, "salt")
     _expect(tbl, (8, chunks * 128), F32, "M6 tbl")
-    if (chunks not in CHUNKS or way not in GATHER_WAYS or n_lanes < T
+    if (chunks not in CHUNKS or way not in routes or n_lanes < T
             or n_lanes % T or iters < 0):
         raise ValueError(f"M6: chunks {chunks}, way {way!r}, {n_lanes} lanes,"
                          f" iters {iters}")
     if not _on_card(salt, tbl):
         return gather_plain(salt, tbl, n_lanes, chunks, iters)
+    code, slots = routes[way]
     out = torch.empty((n_lanes // T, 1, T), dtype=F32, device=salt.device)
-    return _launch(gather_label(chunks, way, n_lanes), out, 1,
-                   GATHER_WAYS.index(way), chunks, 0, iters, n_lanes, salt,
-                   tbl, None, out, kernel="microbench_v5")
+    return _launch(gather_label(chunks, way, n_lanes), out, 1, code, chunks, 0,
+                   iters, n_lanes, salt, slot_major(tbl) if slots else tbl,
+                   None, out, kernel="microbench_v5")
+
+
+def slot_major(tbl):
+    """The (W, 8) copy of the (8, W) table: slot s's 8 fields in row s, 32
+    contiguous bytes, as K1 keeps its winners' payload."""
+    return tbl.t().contiguous()
 
 
 def gather_slots(chunks: int, iters: int, device) -> torch.Tensor:
@@ -380,7 +397,12 @@ def _gather_library_ms(tbl, chunks, n_lanes):
     return cuda_ms(lambda: tbl[:, slots].sum(0).sum(0), warmup=1, runs=3)
 
 
-def run_m6(dev, log=print):
+def run_m6(dev, log=print, routes=None):
+    """Every M6 way of ``routes`` (``GATHER_ROUTES``) at each width and
+    lane count, on the TPU probe's table and the seeded one: timed, with
+    the device's own time where the window's is under ``DEVICE_MS_BELOW``,
+    and bit-equal to ``gather_plain`` (raises ``ProbeMismatch``)."""
+    routes = GATHER_ROUTES if routes is None else routes
     salt = torch.tensor([SALT], dtype=F32, device=dev)
     out = []
     warm_plain(salt)
@@ -391,12 +413,12 @@ def run_m6(dev, log=print):
                 lambda: gather_plain(salt, tbl, T, chunks, GATHER_ITERS))
             for n_lanes in LANES:
                 lib_ms = _gather_library_ms(tbl, chunks, n_lanes)
-                for way in GATHER_WAYS:
+                for way in routes:
                     label = gather_label(chunks, way, n_lanes)
                     name = f"{label} lanes ({which})"
-                    ms, y, _, runs = _timed(
-                        lambda: gather(salt, tbl, n_lanes, chunks, way,
-                                       GATHER_ITERS), min_window_ms=50.0)
+                    call = lambda: gather(salt, tbl, n_lanes, chunks,  # noqa: E731
+                                          way, GATHER_ITERS, routes)
+                    ms, y, _, runs = _timed(call, min_window_ms=50.0)
                     _bit_equal(name, y, ref[0:1].expand_as(y))
                     e = _entry("M6", name, label, ms, runs,
                                (*gather_work(n_lanes, chunks, GATHER_ITERS),
@@ -405,9 +427,11 @@ def run_m6(dev, log=print):
                                chunks=chunks, way=way, lanes=n_lanes,
                                input=which,
                                ns_per_lane_step=ms * 1e6
-                               / (n_lanes * GATHER_ITERS))
+                               / (n_lanes * GATHER_ITERS),
+                               **_device_entry(call, ms))
                     log(f"[probe] {name}: {ms:.4f} ms "
-                        f"({e['ns_per_lane_step']:.5f} ns a lane-step), bound"
+                        f"({e['ns_per_lane_step']:.5f} ns a lane-step"
+                        f"{_device_note(e)}), bound"
                         f" {e['bound_ms']:.4f} on {e['bound_row']} "
                         f"({e['share']:.4f}; old {e['old_bound_ms']:.4f}, "
                         f"{e['old_share']:.4f}), indexing {lib_ms:.4f} ms; "

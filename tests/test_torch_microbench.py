@@ -36,6 +36,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from raytracers_tpu_torch.probes import microbench as mb
 
@@ -249,6 +251,96 @@ def test_reduce_plain_vs_jax(dtype):
     assert p.dtype == o.dtype and (p == o).all()
 
 
+def _lanes_model(v0, iters, lanes, way):
+    """The k-lane route of csrc/microbench.cu on the CPU: lane ``sub`` of a
+    column's ``lanes`` holds rows ``rows[sub::lanes]``, takes their minimum
+    as a tree (w[e] = min(w[e], w[e + h]), h halving; a tie keeps the left
+    operand, so a -0/+0 tie may yield either zero), then the group's
+    minimum by a butterfly (the same tie rule) or, for ``redux``, the
+    minimum of the order keys; acc adds it, keys get + 1."""
+    v = v0.numpy().copy()
+    one = v.dtype.type(1)
+    acc = np.zeros(T, v.dtype)
+
+    def tmin(a, b):
+        return np.where(b < a, b, a)
+    for _ in range(iters):
+        parts = []
+        for sub in range(lanes):
+            w = [v[r] for r in range(sub, LANE, lanes)]
+            h = len(w) // 2
+            while h >= 1:
+                w = [tmin(w[e], w[e + h]) for e in range(h)] + w[2 * h:]
+                h //= 2
+            parts.append(w[0])
+        if way == "redux":
+            keys = np.stack(parts)
+            if keys.dtype == np.float32:
+                keys = mb.order_key(torch.from_numpy(keys)).numpy()
+            m = keys.min(0)
+            if v.dtype == np.float32:
+                m = mb.from_order_key(torch.from_numpy(m)).numpy()
+        else:
+            o = lanes // 2
+            while o >= 1:
+                parts = [tmin(parts[t], parts[t ^ o]) for t in range(lanes)]
+                o //= 2
+            m = parts[0]
+        acc = acc + m
+        v = v + one
+    return acc
+
+
+_SPECIAL = [0.0, -0.0, -1.0, 1.0, -2.0, 2.5, -3.5e-39, 3.5e-39, -1e30,
+            1e30, float("inf"), -float("inf")]
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.lists(st.floats(width=32, allow_nan=False), min_size=1,
+                max_size=64),
+       st.sampled_from(["float32", "int32"]),
+       st.sampled_from(mb.REDUCE_LANES), st.sampled_from(["shuffle", "redux"]),
+       st.integers(0, 2 ** 32 - 1))
+def test_lanes_model_equals_reduce_plain(pool, dtype, lanes, way, seed):
+    """A tree minimum of 128/k keys in any grouping, across k lanes by a
+    butterfly or by the order keys' minimum, summed as acc, equals
+    reduce_plain bit for bit: keys drawn from a few values, with -0/+0,
+    ties and infinities among them, so columns meet ties of both zeros;
+    the rows dealt to the lanes in a random order."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        vals = np.array([int(x) % 2001 - 1000 if math.isfinite(x) else 7
+                         for x in pool], np.int32)
+    else:
+        vals = np.array(pool + _SPECIAL, np.float32)
+    keys = rng.choice(vals, (LANE, T))
+    v0 = torch.from_numpy(keys[rng.permutation(LANE)])
+    got = _lanes_model(v0, 3, lanes, way)
+    want = mb.reduce_plain(torch.from_numpy(keys), 3, 1).numpy()[0, 0]
+    assert (got.view(np.int32) == want.view(np.int32)).all()
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.floats(width=32, allow_nan=False),
+       st.floats(width=32, allow_nan=False))
+def test_order_key_orders_and_round_trips(a, b):
+    """order_key: integer order is float order for every non-NaN float32
+    (-0 below +0), and from_order_key inverts it bit for bit."""
+    x = torch.tensor([a, b], dtype=torch.float32)
+    k = mb.order_key(x)
+    assert torch.equal(mb.from_order_key(k).view(torch.int32),
+                       x.view(torch.int32))
+    fa, fb = float(x[0]), float(x[1])
+    if fa < fb:
+        assert int(k[0]) < int(k[1])
+    elif fa > fb:
+        assert int(k[0]) > int(k[1])
+    elif math.copysign(1, fa) == math.copysign(1, fb):
+        assert int(k[0]) == int(k[1])
+    else:
+        assert (int(k[0]) < int(k[1])) == (math.copysign(1, fa) < 0)
+
+
 def test_reduce_plain_on_seeded_keys():
     """The sum of the column minima of v + i, against numpy."""
     for dtype in ("f32", "int32"):
@@ -408,10 +500,39 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     v = mb._reduce_inputs("int32", "seeded", "cpu")
     assert torch.equal(mb.reduce_min(v, 3, 2, "redux"),
                        mb.reduce_plain(v, 3, 2))
+    for dtype, way, lanes in mb.reduce_routes():
+        v = mb._reduce_inputs(dtype, "seeded", "cpu")
+        assert torch.equal(mb.reduce_min(v, 3, 2, way, lanes),
+                           mb.reduce_plain(v, 3, 2))
     sphT, sph8 = (torch.from_numpy(x) for x in mb.visit_inputs("seeded"))
     assert torch.equal(mb.visit(s, sphT, sph8, 512, 2, "warp"),
                        mb.visit_plain(s, sphT, sph8, 512, 2))
     assert dict(mb.LAUNCHES) == before
+
+
+def test_reduce_routes_and_their_codes(monkeypatch):
+    """22 routes, one label each; the C entry's arg is the dtype (0 f32, 1
+    int32) + 2 log2(32 / k), so a warp a column (k = 32) and the serial
+    loop pass the dtype alone, as the parent's kernels take it."""
+    routes = mb.reduce_routes()
+    assert len(routes) == 2 * (1 + 2 * len(mb.REDUCE_LANES))
+    assert len({mb.reduce_label(*r) for r in routes}) == len(routes)
+    assert mb.reduce_label("f32", "shuffle", 4) == "M3 f32 shuffle k4"
+    assert mb.reduce_label("int32", "serial") == "M3 int32 serial"
+    seen = []
+    monkeypatch.setattr(mb, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(mb, "_launch",
+                        lambda label, out, *args, **kw: seen.append(
+                            (label,) + args[:3]))
+    for dtype, way, lanes in routes:
+        mb.reduce_min(mb._reduce_inputs(dtype, "tpu", "cpu"), 4, 1, way,
+                      lanes)
+    codes = {label: (way, arg) for label, _, way, arg in seen}
+    assert codes["M3 f32 serial"] == (0, 0)
+    assert codes["M3 int32 redux k32"] == (2, 1)
+    assert codes["M3 f32 shuffle k32"] == (1, 0)
+    assert codes["M3 f32 shuffle k2"] == (1, 8)
+    assert codes["M3 int32 shuffle k4"] == (1, 7)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -423,7 +544,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
            lambda: mb.dot(s, a.t().contiguous(), b, "pair"),
            lambda: mb.dot(s, a, b, "pair", 4, 1, "fp16"),
            lambda: mb.reduce_min(mb._reduce_inputs("f32", "tpu", "cpu"),
-                                 4, 1, "redux"),
+                                 4, 1, "redux", 64),
+           lambda: mb.reduce_min(mb._reduce_inputs("f32", "tpu", "cpu"),
+                                 4, 1, "shuffle", 1),
+           lambda: mb.reduce_min(mb._reduce_inputs("int32", "tpu", "cpu"),
+                                 4, 1, "serial", 32),
+           lambda: mb.reduce_min(mb._reduce_inputs("int32", "tpu", "cpu"),
+                                 4, 1, "butterfly"),
            lambda: mb.reduce_min(torch.zeros(LANE, T, dtype=torch.int64)),
            lambda: mb.visit(s, torch.zeros(LANE, 8), torch.zeros(8, LANE),
                             300)]
@@ -541,6 +668,53 @@ def test_record_and_the_bounds_weights():
     assert chip_smoke.OPS_PER_SLOT == pytest.approx(29 + chip_smoke.SQRT_OPS)
 
 
+def test_turns_rows_and_rerecord(tmp_path, monkeypatch):
+    """The M3/M6 turns probe's bookkeeping on the CPU: a row an entry name
+    with each build's medians, the parent's only where it has the route;
+    --record puts the change's last M3 turn in place of the record's M3,
+    recounts the M1 bounds and keeps M1's times and weights."""
+    from raytracers_tpu_torch.probes import m3m6_turns as tm
+
+    def e(name, ms, **kw):
+        return dict(probe="M3", name=name, label=name, ms=ms, bound_ms=0.016,
+                    bound_by="operations", bound_row="minmax",
+                    old_bound_ms=0.016, ms_seeded=ms, **kw)
+    turns = []
+    for i, b in enumerate(tm.ORDER):
+        es = [e("M3 f32 shuffle k32", 0.05 + i * 1e-4)]
+        if b == "change":
+            es.append(e("M3 f32 shuffle k4", 0.03, device_ms=0.027))
+        turns.append(dict(build=b, entries=es))
+    rows = {r["name"]: r for r in tm.rows_of(turns, log=lambda *a: None)}
+    k32, k4 = rows["M3 f32 shuffle k32"], rows["M3 f32 shuffle k4"]
+    assert len(k32["ms"]["parent"]) == len(k32["ms"]["change"]) == 4
+    assert k32["parent_over_change"] == pytest.approx(
+        k32["median_ms"]["parent"] / k32["median_ms"]["change"])
+    assert "parent" not in k4["ms"] and k4["parent_over_change"] is None
+    assert k4["median_device_ms"] == {"change": 0.027}
+    rec = json.loads(mb.RECORD.read_text())
+    path = tmp_path / "rec.json"
+    path.write_text(json.dumps(rec))
+    monkeypatch.setattr(mb, "sass_counts", lambda so: ({"k": {}}, ""))
+    tm.rerecord(path, dict(turns=turns, card="c", torch="t", cuda="u",
+                           script="s", fchk_lanes_per_cycle=16.0), "M3",
+                Path("x.so"), log=lambda *a: None)
+    out = json.loads(path.read_text())
+    m3 = [x for x in out["entries"] if x["probe"] == "M3"]
+    assert [x["name"] for x in m3] == ["M3 f32 shuffle k32",
+                                       "M3 f32 shuffle k4"]
+    assert [x["probe"] for x in out["entries"]] == sorted(
+        (x["probe"] for x in out["entries"]), key=lambda p: int(p[1:]))
+    old_m1 = [x for x in rec["entries"] if x["probe"] == "M1"]
+    new_m1 = [x for x in out["entries"] if x["probe"] == "M1"]
+    for a, b in zip(old_m1, new_m1):
+        assert b["ms"] == a["ms"] and b["old_bound_ms"] == a["bound_ms"]
+        assert b["bound_row"] == ("fp32" if a["mode"] in ("mul_add", "fma")
+                                  else "mufu")
+    assert out["mul_equivalents"] == rec["mul_equivalents"]
+    assert out["fchk_lanes_per_cycle"] == 16.0 and out["sass"] == {"k": {}}
+
+
 # ---------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -606,13 +780,61 @@ def test_card_dot_sass_runs_tf32_on_wgmma(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,way", [("f32", "serial"), ("f32", "shuffle"),
-                                       ("int32", "serial"),
-                                       ("int32", "shuffle"),
-                                       ("int32", "redux")])
-def test_card_reduce_equals_plain(cuda, dtype, way):
-    v = mb._reduce_inputs(dtype, "seeded", cuda)
-    assert torch.equal(mb.reduce_min(v, 9, 3, way), mb.reduce_plain(v, 9, 3))
+@pytest.mark.parametrize("which", ["tpu", "seeded"])
+@pytest.mark.parametrize("dtype,way,lanes", mb.reduce_routes())
+def test_card_reduce_equals_plain(cuda, dtype, way, lanes, which):
+    """Every route bit-equal to reduce_plain; 9 iterations cross the
+    in-flight batch of 4 and its remainder."""
+    v = mb._reduce_inputs(dtype, which, cuda)
+    label = mb.reduce_label(dtype, way, lanes)
+    n0 = mb.LAUNCHES[label]
+    y = mb.reduce_min(v, 9, 3, way, lanes)
+    assert mb.LAUNCHES[label] == n0 + 1
+    assert torch.equal(y, mb.reduce_plain(v, 9, 3))
+
+
+@pytest.mark.cuda
+def test_card_reduce_keeps_ties_of_zeros_and_infinities(cuda):
+    """Float keys of -0, +0, infinities and ties in every column: every
+    route bit-equal to reduce_plain (a -0/+0 tie cannot change acc)."""
+    rng = np.random.default_rng(3)
+    vals = np.array(_SPECIAL, np.float32)
+    v = torch.from_numpy(rng.choice(vals, (LANE, T))).to(cuda)
+    for dtype, way, lanes in mb.reduce_routes():
+        if dtype == "f32":
+            assert torch.equal(mb.reduce_min(v, 6, 2, way, lanes).view(
+                torch.int32), mb.reduce_plain(v, 6, 2).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_card_reduce_sass_keeps_the_minima_in_the_loop(cuda):
+    """The k-lane kernels: every iteration's minima are issued (at least
+    5 (128/k - 1) minima, 4 in-flight iterations and the remainder's: no
+    minimum is taken once and shifted by the increments), float minima as
+    FMNMX (no compare and select), log2(k) shuffles an iteration on the
+    shuffle way and one REDUX on the redux way; the keys stay in registers
+    (no local memory)."""
+    from raytracers_tpu_torch.render import _cuda
+    _cuda.load("microbench")
+    counts, _ = mb.sass_counts(_cuda.build_info["microbench"]["path"])
+    lanes = {f: c for f, c in counts.items() if "reduce_lanes" in f}
+    assert len(lanes) == 2 * 2 * len(mb.REDUCE_LANES)
+    for f, c in lanes.items():
+        is_f32 = "reduce_lanesIfLi" in f
+        k = int(f.split("Li")[1].split("E")[0])
+        redux = f.split("ELb")[1][0] == "1"
+        mins = c.get("FMNMX", 0) if is_f32 else (c.get("VIMNMX", 0)
+                                                 + c.get("IMNMX", 0))
+        assert mins >= 5 * (128 // k - 1), (f, c)
+        if is_f32:
+            assert not c.get("FSETP") and not c.get("FSEL"), (f, c)
+        if redux:
+            assert c.get("REDUX", 0) >= 5 and not c.get("SHFL"), (f, c)
+        else:
+            rounds = int(math.log2(k))
+            assert c.get("SHFL", 0) >= 5 * rounds, (f, c)
+            assert c["SHFL"] % rounds == 0, (f, c)
+        assert "LDL" not in c and "STL" not in c, (f, c)
 
 
 @pytest.mark.cuda

@@ -279,6 +279,52 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     assert dict(mb.LAUNCHES) == before
 
 
+def test_gather_ways_and_their_codes():
+    """Each way names a code of the C entry and the layout its kernel
+    reads: __ldg from the slot-major copy, shared memory staged from the
+    field-major table; the codes are distinct, and way 0 (the field-major
+    __ldg route K1 does not read) is not one of them."""
+    assert set(v5.GATHER_ROUTES) == set(v5.GATHER_WAYS)
+    codes = [c for c, _ in v5.GATHER_ROUTES.values()]
+    assert sorted(codes) == [1, 2, 3]
+    assert v5.GATHER_ROUTES["ldg"] == (2, True)
+    assert not v5.GATHER_ROUTES["smem"][1]
+    assert not v5.GATHER_ROUTES["smem_slots"][1]
+
+
+@pytest.mark.parametrize("chunks", v5.CHUNKS)
+def test_slot_major_copy(chunks):
+    """The ldg way's table: the (W, 8) copy, equal to tbl.T.contiguous(),
+    slot s's 8 fields in row s as 32 contiguous bytes, K1's layout."""
+    tbl = torch.from_numpy(v5.gather_inputs("seeded", chunks))
+    sm = v5.slot_major(tbl)
+    assert sm.is_contiguous() and sm.shape == (chunks * 128, 8)
+    assert torch.equal(sm, tbl.T.contiguous())
+    flat = sm.reshape(-1)
+    for slot in (0, 37, chunks * 128 - 1):
+        assert torch.equal(flat[8 * slot:8 * slot + 8], tbl[:, slot])
+
+
+def test_padded_slot_staging_meets_no_bank_conflict():
+    """The shared slot-major way stages slot s at words 12s .. 12s + 7 and
+    reads them as two 16-byte loads: for every step, quarter-warp and
+    width, the 8 lanes' slots (lane * 37 + i) mod W fall on 8 distinct
+    groups of 4 banks, for both loads; unpadded (8 words a slot) they
+    would not."""
+    def conflicts(words):
+        n = 0
+        for w in (128, 512):
+            for i in range(w):
+                for q in range(T // 8):
+                    for half in (0, 1):
+                        quads = {(words * ((37 * (8 * q + t) + i) % w) // 4
+                                  + half) % 8 for t in range(8)}
+                        n += len(quads) < 8
+        return n
+    assert conflicts(12) == 0
+    assert conflicts(8) > 0
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     s = _salt()
     sphT, sph8 = _m5_inputs("tpu", 32)
@@ -292,6 +338,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                16),
            lambda: v5.gather(s, tbl, 1024, 1),
            lambda: v5.gather(s, tbl, 1024, 4, "tex"),
+           lambda: v5.gather(s, tbl, 1024, 4, "ldg_fields"),
+           lambda: v5.gather(s, tbl, 1024, 4, "smem", routes={"ldg": (0,
+                                                                     False)}),
            lambda: v5.gather(s, tbl, 256, 4),
            lambda: v5.gather(s, tbl.t(), 1024, 4)]
     for f in bad:
@@ -383,12 +432,40 @@ def test_card_visit_equals_plain(cuda, rows, payload, way, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [3 * T, 1 << 20])
 @pytest.mark.parametrize("which", v5.INPUTS)
 @pytest.mark.parametrize("way", v5.GATHER_WAYS)
 @pytest.mark.parametrize("chunks", v5.CHUNKS)
-def test_card_gather_equals_plain(cuda, chunks, way, which):
+def test_card_gather_equals_plain(cuda, chunks, way, which, lanes):
+    """Every way and width bit-equal to gather_plain, at a few tiles and at
+    1M lanes, where the shared ways' blocks loop over several tiles; 11
+    steps cross the unrolled loop's remainder."""
     s = torch.tensor([SALT], device=cuda)
     tbl = torch.from_numpy(v5.gather_inputs(which, chunks)).to(cuda)
-    y = v5.gather(s, tbl, 3 * T, chunks, way, iters=11)
-    ref = v5.gather_plain(s, tbl, 3 * T, chunks, 11)
+    label = v5.gather_label(chunks, way, lanes)
+    n0 = mb.LAUNCHES[label]
+    y = v5.gather(s, tbl, lanes, chunks, way, iters=11)
+    assert mb.LAUNCHES[label] == n0 + 1
+    ref = v5.gather_plain(s, tbl, lanes, chunks, 11)
     assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_card_gather_sass(cuda):
+    """No gather kernel holds a MUFU (the slot steps by an increment and a
+    mask); the __ldg way reads a slot as two 16-byte loads (LDG.128, two a
+    lane-step of the unrolled body and of its remainder) and makes no
+    other load; the padded shared way reads two LDS.128."""
+    from raytracers_tpu_torch.render import _cuda
+    _cuda.load("microbench_v5")
+    counts, _ = mb.sass_counts(_cuda.build_info["microbench_v5"]["path"])
+    gathers = {f: c for f, c in counts.items() if "gather_probe" in f}
+    assert len(gathers) == 2 * len(v5.GATHER_WAYS)
+    assert not [f for f, c in gathers.items() if c.get("MUFU")]
+    for f, c in gathers.items():
+        way = int(f.split("ELi")[1][0])
+        if way == 2:
+            assert c.get("LDG.128", 0) >= 2 and c["LDG.128"] % 2 == 0
+            assert c["LDG"] == c["LDG.128"]
+        elif way == 3:
+            assert c.get("LDS.128", 0) >= 2 and c["LDS.128"] % 2 == 0
