@@ -806,10 +806,35 @@ def test_card_reduce_keeps_ties_of_zeros_and_infinities(cuda):
                 torch.int32), mb.reduce_plain(v, 6, 2).view(torch.int32))
 
 
+def _minima(c: dict, is_f32: bool) -> int:
+    """Two-operand minima in a kernel's SASS counts: FMNMX for float keys;
+    for int32 keys VIMNMX and IMNMX, and VIMNMX3 (three inputs) as two."""
+    if is_f32:
+        return c.get("FMNMX", 0)
+    return c.get("VIMNMX", 0) + c.get("IMNMX", 0) + 2 * c.get("VIMNMX3", 0)
+
+
+@pytest.mark.cuda
+def test_card_reduce_serial_sass_keeps_the_minima_in_the_loop(cuda):
+    """The serial loop issues 127 minima an iteration for either key type:
+    127 compare-and-selects for float keys, and for int32 keys 63
+    three-input VIMNMX3 and one VIMNMX."""
+    from raytracers_tpu_torch.render import _cuda
+    _cuda.load("microbench")
+    counts, _ = mb.sass_counts(_cuda.build_info["microbench"]["path"])
+    serial = {f: c for f, c in counts.items() if "reduce_serial" in f}
+    assert len(serial) == 2
+    for f, c in serial.items():
+        is_f32 = "reduce_serialIf" in f
+        mins = c.get("FSETP", 0) if is_f32 else _minima(c, False)
+        assert mins >= 127, (f, c)
+
+
 @pytest.mark.cuda
 def test_card_reduce_sass_keeps_the_minima_in_the_loop(cuda):
     """The k-lane kernels: every iteration's minima are issued (at least
-    5 (128/k - 1) minima, 4 in-flight iterations and the remainder's: no
+    5 (128/k - 1) two-operand minima, a VIMNMX3 counting two; 4 in-flight
+    iterations and the remainder's: no
     minimum is taken once and shifted by the increments), float minima as
     FMNMX (no compare and select), log2(k) shuffles an iteration on the
     shuffle way and one REDUX on the redux way; the keys stay in registers
@@ -823,9 +848,7 @@ def test_card_reduce_sass_keeps_the_minima_in_the_loop(cuda):
         is_f32 = "reduce_lanesIfLi" in f
         k = int(f.split("Li")[1].split("E")[0])
         redux = f.split("ELb")[1][0] == "1"
-        mins = c.get("FMNMX", 0) if is_f32 else (c.get("VIMNMX", 0)
-                                                 + c.get("IMNMX", 0))
-        assert mins >= 5 * (128 // k - 1), (f, c)
+        assert _minima(c, is_f32) >= 5 * (128 // k - 1), (f, c)
         if is_f32:
             assert not c.get("FSETP") and not c.get("FSEL"), (f, c)
         if redux:
