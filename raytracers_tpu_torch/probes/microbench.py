@@ -1068,8 +1068,9 @@ def cpu_smoke(log=print) -> dict:
 
 def sass_counts(path: str) -> dict:
     """Instruction counts by opcode (FMUL, FADD, FFMA, MUFU, HMMA, HGMMA,
-    SHFL, REDUX, VIMNMX3 (a three-input int32 minimum), ...; LDG.128 and
-    LDS.128 for the 16-byte loads) of each
+    SHFL, REDUX, VIMNMX3 and VIADDMNMX (Hopper's three-input int32 minimum
+    and its fused add and minimum), ...; LDG.128 and LDS.128 for the
+    16-byte loads) of each
     kernel in the library at ``path``, from ``cuobjdump -sass``; and the
     listing itself."""
     tool = shutil.which("cuobjdump")
@@ -1093,8 +1094,8 @@ def sass_counts(path: str) -> dict:
             if m.group(1) in ("LDG", "LDS") and ".128" in m.group(2):
                 counts[fn][m.group(1) + ".128"] += 1
     keep = ("FMUL", "FADD", "FFMA", "MUFU", "FCHK", "HMMA", "HGMMA", "SHFL",
-            "REDUX", "FMNMX", "IMNMX", "VIMNMX", "VIMNMX3", "FSETP", "FSEL",
-            "LDG",
+            "REDUX", "FMNMX", "IMNMX", "VIMNMX", "VIMNMX3", "VIADDMNMX",
+            "FSETP", "FSEL", "LDG",
             "LDG.128", "LDS", "LDS.128", "LDL", "STL", "BRA", "CALL")
     return {f: {k: c[k] for k in keep if c[k]} for f, c in counts.items()}, text
 

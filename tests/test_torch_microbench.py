@@ -808,10 +808,12 @@ def test_card_reduce_keeps_ties_of_zeros_and_infinities(cuda):
 
 def _minima(c: dict, is_f32: bool) -> int:
     """Two-operand minima in a kernel's SASS counts: FMNMX for float keys;
-    for int32 keys VIMNMX and IMNMX, and VIMNMX3 (three inputs) as two."""
+    for int32 keys VIMNMX, IMNMX and VIADDMNMX (an add fused with a
+    minimum), and VIMNMX3 (three inputs) as two."""
     if is_f32:
         return c.get("FMNMX", 0)
-    return c.get("VIMNMX", 0) + c.get("IMNMX", 0) + 2 * c.get("VIMNMX3", 0)
+    return (c.get("VIMNMX", 0) + c.get("IMNMX", 0) + c.get("VIADDMNMX", 0)
+            + 2 * c.get("VIMNMX3", 0))
 
 
 @pytest.mark.cuda
@@ -833,7 +835,8 @@ def test_card_reduce_serial_sass_keeps_the_minima_in_the_loop(cuda):
 @pytest.mark.cuda
 def test_card_reduce_sass_keeps_the_minima_in_the_loop(cuda):
     """The k-lane kernels: every iteration's minima are issued (at least
-    5 (128/k - 1) two-operand minima, a VIMNMX3 counting two; 4 in-flight
+    5 (128/k - 1) two-operand minima, a VIMNMX3 counting two and a
+    VIADDMNMX one; 4 in-flight
     iterations and the remainder's: no
     minimum is taken once and shifted by the increments), float minima as
     FMNMX (no compare and select), log2(k) shuffles an iteration on the
