@@ -2226,7 +2226,9 @@ def phase_probes() -> dict:
     on the same inputs (bit-equal; M1's FMA within its steps' ulps, M2's
     TF32 routes within their rounding bound, M7's mxuquad product within
     its bound and its visit bit-equal given that product) and given its
-    bound.  M5 and M7 charge a root and 1/a at the M1 weights measured
+    bound (M1, M3 and M6 by the pipe that limits them, the old bound
+    beside); M3's and M6's rows under 0.05 ms also carry the device's own
+    time.  M5 and M7 charge a root and 1/a at the M1 weights measured
     here."""
     from raytracers_tpu_torch.probes import microbench as mb
     from raytracers_tpu_torch.probes import microbench_mxuquad as mq

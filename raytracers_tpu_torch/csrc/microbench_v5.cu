@@ -27,9 +27,8 @@
 //                           sum to its running sum.  Through __ldg from the
 //                           slot-major (W, 8) copy, two 16-byte loads a
 //                           lane-step as K1 reads its winner's payload, or
-//                           from a copy the block stages in shared memory,
-//                           field-major (8 words) or slot-major and padded
-//                           (two 16-byte loads).  The TPU probe's
+//                           from a copy the block stages in shared memory
+//                           (8 words a lane-step).  The TPU probe's
 //                           salt * 0.0 changes no value but -0, which no
 //                           table of the probes holds, so the kernel leaves
 //                           it out.
@@ -185,30 +184,24 @@ int launch_visit(int way, int rows, const float* salt, const float* sphT,
 // does not read):
 //   1 shared memory, field-major: the block stages the (8, W) table as it
 //     is and reads 8 words a lane-step; 37 is odd, so a warp's 32 lanes
-//     read 32 banks;
+//     read 32 banks.  A slot-major staging, padded to 12 words a slot so
+//     that two float4 loads meet no bank conflict, ran 0.5-0.7% slower;
 //   2 __ldg, slot-major: the (W, 8) copy the wrapper makes, each slot's 8
 //     fields as two float4 (16-byte) loads, as K1 reads its winner's
-//     payload (csrc/megakernel.cu);
-//   3 shared memory, slot-major: the block stages slot s's fields at words
-//     12s .. 12s + 7 and reads them as two float4; the 16 bytes of padding
-//     a slot put the 8 lanes of a quarter-warp, 37 slots apart, on 8
-//     distinct groups of 4 banks (3 * 37 is 7 mod 8).
-// Blocks of the shared routes loop over tiles of 256 lanes, so that the
-// table is staged once for each block the card holds at a time.
-enum { kGatherSmemFields = 1, kGatherLdgSlots = 2, kGatherSmemSlots = 3 };
-constexpr int kSlotWords = 12;
+//     payload (csrc/megakernel.cu).  Its time follows the distinct 128-byte
+//     lines a warp's load touches, not its bytes.
+// Blocks of the shared way loop over tiles of 256 lanes, so that the table
+// is staged once for each block the card holds at a time.
+enum { kGatherSmem = 1, kGatherLdgSlots = 2 };
 
 template <int kWidth, int kWay>
 __global__ void __launch_bounds__(256)
 gather_probe(const float* __restrict__ tbl, float* __restrict__ out,
              int iters, int n) {
   extern __shared__ __align__(16) float stbl[];
-  if constexpr (kWay != kGatherLdgSlots) {
-    for (int i = threadIdx.x; i < 8 * kWidth; i += blockDim.x) {
-      const int f = i / kWidth, s = i % kWidth;
-      stbl[kWay == kGatherSmemFields ? i : s * kSlotWords + f] =
-          __ldg(tbl + i);
-    }
+  if constexpr (kWay == kGatherSmem) {
+    for (int i = threadIdx.x; i < 8 * kWidth; i += blockDim.x)
+      stbl[i] = __ldg(tbl + i);
     __syncthreads();
   }
   for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < n;
@@ -218,21 +211,12 @@ gather_probe(const float* __restrict__ tbl, float* __restrict__ out,
 #pragma unroll 4
     for (int i = 0; i < iters; ++i) {
       float v[8];
-      if constexpr (kWay == kGatherSmemFields) {
+      if constexpr (kWay == kGatherSmem) {
 #pragma unroll
         for (int f = 0; f < 8; ++f) v[f] = stbl[f * kWidth + slot];
       } else {
-        float4 lo, hi;
-        if constexpr (kWay == kGatherLdgSlots) {
-          const float4* p = reinterpret_cast<const float4*>(tbl) + 2 * slot;
-          lo = __ldg(p);
-          hi = __ldg(p + 1);
-        } else {
-          const float4* p =
-              reinterpret_cast<const float4*>(stbl + slot * kSlotWords);
-          lo = p[0];
-          hi = p[1];
-        }
+        const float4* p = reinterpret_cast<const float4*>(tbl) + 2 * slot;
+        const float4 lo = __ldg(p), hi = __ldg(p + 1);
         v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
         v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
       }
@@ -253,8 +237,7 @@ int launch_gather(const float* tbl, float* out, int iters, int n,
   if constexpr (kWay == kGatherLdgSlots) {
     gather_probe<kWidth, kWay><<<tiles, 256, 0, st>>>(tbl, out, iters, n);
   } else {
-    constexpr size_t smem =
-        sizeof(float) * kWidth * (kWay == kGatherSmemFields ? 8 : kSlotWords);
+    constexpr size_t smem = sizeof(float) * 8 * kWidth;
     static int resident = 0;     // blocks the card holds at a time
     if (resident == 0) {
       int dev = 0, sms = 0, per_sm = 0;
@@ -274,12 +257,10 @@ template <int kWidth>
 int launch_gather_way(int way, const float* tbl, float* out, int iters,
                       int n, cudaStream_t st) {
   switch (way) {
-    case kGatherSmemFields:
-      return launch_gather<kWidth, kGatherSmemFields>(tbl, out, iters, n, st);
+    case kGatherSmem:
+      return launch_gather<kWidth, kGatherSmem>(tbl, out, iters, n, st);
     case kGatherLdgSlots:
       return launch_gather<kWidth, kGatherLdgSlots>(tbl, out, iters, n, st);
-    case kGatherSmemSlots:
-      return launch_gather<kWidth, kGatherSmemSlots>(tbl, out, iters, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -288,10 +269,10 @@ int launch_gather_way(int way, const float* tbl, float* out, int iters,
 
 // One entry point for both probes.  probe 0 (M5): way (0 thread, 1 warp),
 // width = rows (32, 64, 128), payload (0 mxu, 1 defer), size = rays, in0 =
-// sphT, in1 = sph8; probe 1 (M6): way (1 shared memory field-major, 2
-// __ldg slot-major, 3 shared memory slot-major), width = chunks (1 or 4),
-// size = lanes, in0 = the table, (8, W) for ways 1 and 3 and (W, 8) for
-// way 2.  size is a multiple of 512.  The salt of M6 is not read.
+// sphT, in1 = sph8; probe 1 (M6): way (1 shared memory, 2 __ldg
+// slot-major), width = chunks (1 or 4), size = lanes, in0 = the table,
+// (8, W) for way 1 and (W, 8) for way 2.  size is a multiple of 512.  The
+// salt of M6 is not read.
 extern "C" int rt_microbench_v5_launch(int probe, int way, int width,
                                        int payload, int iters, int size,
                                        const float* salt, const float* in0,

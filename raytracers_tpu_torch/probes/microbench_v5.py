@@ -19,7 +19,8 @@ beside each kernel:
 * M6 (``gather_kernel``): the deferred read, 64 times per lane: the 8
   fields of slot (lane * 37 + i) mod (chunks * 128) of an (8, chunks * 128)
   table, summed in field order and added to a running sum; through
-  ``__ldg`` or from a copy staged in shared memory.
+  ``__ldg`` from the slot-major copy K1's payload layout keeps (two 16-byte
+  loads a slot), or from a copy staged in shared memory.
 
 Each wrapper launches its kernel for CUDA tensors (counted in
 ``microbench.LAUNCHES`` under the variant's label) and takes the plain
@@ -62,12 +63,11 @@ ROWS = (32, 64, 128)
 PAYLOADS = ("mxu", "defer")
 CHUNKS = (4, 1)
 VISIT_WAYS = ("thread", "warp")
-GATHER_WAYS = ("ldg", "smem", "smem_slots")
 # way -> (the C entry's way code, whether the kernel reads the slot-major
 # (W, 8) copy): __ldg from the copy, K1's layout; the table staged in
-# shared memory field-major, or slot-major and padded
-GATHER_ROUTES = {"ldg": (2, True), "smem": (1, False),
-                 "smem_slots": (3, False)}
+# shared memory as it is
+GATHER_ROUTES = {"ldg": (2, True), "smem": (1, False)}
+GATHER_WAYS = tuple(GATHER_ROUTES)
 RAYS = (GRID * T, 256 * 256, 1 << 20)   # the TPU's grid, 256^2, ~1000^2
 LANES = (GRID * T, 1 << 20)
 INPUTS = ("tpu", "seeded")
@@ -223,10 +223,9 @@ def gather(salt, tbl, n_lanes, chunks, way="ldg", iters=GATHER_ITERS,
     fields, in field order, of slot (lane * 37 + i) mod (chunks * 128) of
     ``tbl`` (8, chunks * 128) to a running sum; out (n_lanes / 512, 1, 512).
     ``way`` (``GATHER_ROUTES``): ``ldg`` reads the slot-major copy
-    (``slot_major``, made in the call) through ``__ldg``; ``smem`` and
-    ``smem_slots`` stage the table in shared memory, field-major or
-    slot-major.  ``routes`` maps ways to another build's codes (a probe of
-    two builds in turns).  The TPU probe adds salt * 0.0 to the table,
+    (``slot_major``, made in the call) through ``__ldg``; ``smem`` stages
+    the table in shared memory.  ``routes`` maps ways to another build's
+    codes (a probe of two builds in turns).  The TPU probe adds salt * 0.0 to the table,
     which changes no value but -0; neither version does."""
     routes = GATHER_ROUTES if routes is None else routes
     _expect(salt, (1,), F32, "salt")

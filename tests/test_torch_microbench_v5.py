@@ -282,14 +282,10 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
 def test_gather_ways_and_their_codes():
     """Each way names a code of the C entry and the layout its kernel
     reads: __ldg from the slot-major copy, shared memory staged from the
-    field-major table; the codes are distinct, and way 0 (the field-major
-    __ldg route K1 does not read) is not one of them."""
-    assert set(v5.GATHER_ROUTES) == set(v5.GATHER_WAYS)
-    codes = [c for c, _ in v5.GATHER_ROUTES.values()]
-    assert sorted(codes) == [1, 2, 3]
-    assert v5.GATHER_ROUTES["ldg"] == (2, True)
-    assert not v5.GATHER_ROUTES["smem"][1]
-    assert not v5.GATHER_ROUTES["smem_slots"][1]
+    field-major table; way 0 (the field-major __ldg route K1 does not
+    read) is not one of them."""
+    assert v5.GATHER_WAYS == ("ldg", "smem")
+    assert v5.GATHER_ROUTES == {"ldg": (2, True), "smem": (1, False)}
 
 
 @pytest.mark.parametrize("chunks", v5.CHUNKS)
@@ -303,26 +299,6 @@ def test_slot_major_copy(chunks):
     flat = sm.reshape(-1)
     for slot in (0, 37, chunks * 128 - 1):
         assert torch.equal(flat[8 * slot:8 * slot + 8], tbl[:, slot])
-
-
-def test_padded_slot_staging_meets_no_bank_conflict():
-    """The shared slot-major way stages slot s at words 12s .. 12s + 7 and
-    reads them as two 16-byte loads: for every step, quarter-warp and
-    width, the 8 lanes' slots (lane * 37 + i) mod W fall on 8 distinct
-    groups of 4 banks, for both loads; unpadded (8 words a slot) they
-    would not."""
-    def conflicts(words):
-        n = 0
-        for w in (128, 512):
-            for i in range(w):
-                for q in range(T // 8):
-                    for half in (0, 1):
-                        quads = {(words * ((37 * (8 * q + t) + i) % w) // 4
-                                  + half) % 8 for t in range(8)}
-                        n += len(quads) < 8
-        return n
-    assert conflicts(12) == 0
-    assert conflicts(8) > 0
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -455,7 +431,7 @@ def test_card_gather_sass(cuda):
     """No gather kernel holds a MUFU (the slot steps by an increment and a
     mask); the __ldg way reads a slot as two 16-byte loads (LDG.128, two a
     lane-step of the unrolled body and of its remainder) and makes no
-    other load; the padded shared way reads two LDS.128."""
+    other load."""
     from raytracers_tpu_torch.render import _cuda
     _cuda.load("microbench_v5")
     counts, _ = mb.sass_counts(_cuda.build_info["microbench_v5"]["path"])
@@ -467,5 +443,3 @@ def test_card_gather_sass(cuda):
         if way == 2:
             assert c.get("LDG.128", 0) >= 2 and c["LDG.128"] % 2 == 0
             assert c["LDG"] == c["LDG.128"]
-        elif way == 3:
-            assert c.get("LDS.128", 0) >= 2 and c["LDS.128"] % 2 == 0
