@@ -20,12 +20,11 @@
 //   M3 reduce_kernel (:134) the minimum of 128 keys per column of a
 //                          (128,256) block, v += 1 each iteration, the minima
 //                          summed: one thread's serial loop over 128
-//                          registers (K1's way, the yardstick), or k lanes a
-//                          column (2 to 32) of 128/k keys each, a tree of
-//                          minima in each lane and then a __shfl_xor_sync
-//                          butterfly or __reduce_min_sync (float keys on
-//                          their order-preserving integer image) over the
-//                          group, several iterations in flight;
+//                          registers (K1's way, the yardstick); 8 lanes a
+//                          column of 16 keys each, a tree of minima in each
+//                          lane, then a __shfl_xor_sync butterfly over the
+//                          8; or (int32 keys) a warp a column and
+//                          __reduce_min_sync; several iterations in flight;
 //   M4 visit_kernel (:170) one 128-sphere cluster visit per iteration: the
 //                          pair sums q and ll, disc, sqrtf, t0/t1, the window
 //                          select, the key (bits(t) & ~0x7F) | row, its
@@ -55,7 +54,7 @@
 // the FP32 pipe's 128.  M2's TF32 routes are bound by the tensor cores' 495
 // TFLOP/s; the FP32 loop by the 33.5e12 lane operations a second.  M3 by
 // its 127 minima a column and iteration at 64 a cycle an SM ("compare,
-// minimum, maximum"): 0.0159 ms at 1980 MHz; its k-lane route issues
+// minimum, maximum"): 0.0159 ms at 1980 MHz; k lanes a column issue
 // 128 - k + k log2 k minima a column and log2(k) k / 32 shuffles, so a few
 // lanes a column keep it on the minima and off the shuffle unit (32 a
 // cycle), while 4096 columns x k lanes are enough warps to fill the SMs.
@@ -750,34 +749,26 @@ reduce_serial(const V* __restrict__ v0, V* __restrict__ out, int iters,
   out[t] = acc;
 }
 
-// (b) k lanes a column (kLanes, 2 to 32; 32 was the one warp route before
-// this design): lane `sub` of the column's group holds rows sub + k*e,
-// e < 128/k, in registers.  An iteration takes each lane's minimum as a
-// tree of independent minima, then log2 k rounds of __shfl_xor_sync within
-// the group, or (kRedux) one __reduce_min_sync over the group's mask.
-// Float keys go through REDUX on their order-preserving integer image
-// (order_key), which is bit-equal to the float minimum for keys without
-// NaN but for a -0/+0 tie, which cannot change acc (acc starts at +0 and
-// x + -0 == x + +0 for every x but -0, which acc never is).  The minima of
-// kFlight iterations are in flight together: their trees and increments
-// come first, then their rounds side by side, then acc adds them in
-// iteration order.  Every iteration's minima stay in the loop.
+// (b) k lanes a column: lane `sub` of the column's group holds rows
+// sub + k*e, e < 128/k, in registers.  An iteration takes each lane's
+// minimum as a tree of independent minima, then log2 k rounds of
+// __shfl_xor_sync within the group (shuffle), or one __reduce_min_sync over
+// the warp (redux, int32 keys, k = 32).  The minima of kFlight iterations
+// are in flight together: their trees and increments come first, then
+// their rounds side by side, then acc adds them in iteration order.  Every
+// iteration's minima stay in the loop.
+//
+// k of the shuffle way: the card's sweep of k in {2, 4, 8, 16, 32}
+// (probes/m3m6_turns.py, docs/M3M6_TURNS_H100.json) puts k = 4 and 8 level
+// for float keys and k = 8 first for int32 keys; k = 2 leaves two of an
+// SM's four schedulers without a warp, k >= 16 issues more minima and
+// shuffles.  REDUX with one mask a group of k < 32 lanes runs once a
+// distinct mask, so the redux way keeps a warp a column.
+constexpr int kShuffleLanes = 8;
+constexpr int kReduxLanes = 32;
+
 __device__ __forceinline__ float kmin(float x, float y) { return fminf(x, y); }
 __device__ __forceinline__ int kmin(int x, int y) { return min(x, y); }
-
-// b ^ ((b >> 31) & 0x7fffffff) on the bits of a float: the identity on
-// non-negative floats, and on negative ones the low 31 bits flipped, so
-// signed integer order is float order (-0 below +0); it is its own inverse.
-// int32 keys are their own image.
-__device__ __forceinline__ int order_key(float v) {
-  const int b = __float_as_int(v);
-  return b ^ ((b >> 31) & 0x7fffffff);
-}
-__device__ __forceinline__ int order_key(int v) { return v; }
-__device__ __forceinline__ void from_order_key(int k, float& v) {
-  v = __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
-}
-__device__ __forceinline__ void from_order_key(int k, int& v) { v = k; }
 
 // The levels of the tree and the rounds of the butterfly are template
 // recursions, so every index is a constant and the keys stay in registers
@@ -821,25 +812,19 @@ __device__ __forceinline__ void butterfly(V (&m)[kU]) {
 
 constexpr int kFlight = 4;   // iterations whose minima are in flight at once
 
-// the minima m[u] of every lane of the group, in each lane
 template <typename V, int kLanes, bool kRedux, int kU>
-__device__ __forceinline__ void group_min(V (&m)[kU], unsigned group) {
-  if constexpr (kRedux) {
-#pragma unroll
-    for (int u = 0; u < kU; ++u)
-      from_order_key(__reduce_min_sync(group, order_key(m[u])), m[u]);
-  } else {
-    butterfly<kLanes / 2>(m);
-  }
-}
-
-template <typename V, int kLanes, bool kRedux, int kU>
-__device__ __forceinline__ void iterate(V (&v)[kRows / kLanes], V& acc,
-                                        unsigned group) {
+__device__ __forceinline__ void iterate(V (&v)[kRows / kLanes], V& acc) {
   V m[kU];
 #pragma unroll
   for (int u = 0; u < kU; ++u) m[u] = min_then_step(v);
-  group_min<V, kLanes, kRedux>(m, group);
+  if constexpr (kRedux) {
+    static_assert(kLanes == 32 && std::is_same_v<V, int>,
+                  "__reduce_min_sync: a warp of int32 keys");
+#pragma unroll
+    for (int u = 0; u < kU; ++u) m[u] = __reduce_min_sync(0xffffffffu, m[u]);
+  } else {
+    butterfly<kLanes / 2>(m);
+  }
 #pragma unroll
   for (int u = 0; u < kU; ++u) acc = add(acc, m[u]);
 }
@@ -856,53 +841,33 @@ reduce_lanes(const V* __restrict__ v0, V* __restrict__ out, int iters,
 #pragma unroll
   for (int e = 0; e < kRows / kLanes; ++e)
     v[e] = v0[(sub + kLanes * e) * kT + j];
-  const unsigned group =
-      kLanes == 32 ? 0xffffffffu
-                   : ((1u << kLanes) - 1u) << ((threadIdx.x % 32) & ~(kLanes - 1));
   V acc = V(0);
   int i = 0;
   for (; i + kFlight <= iters; i += kFlight)
-    iterate<V, kLanes, kRedux, kFlight>(v, acc, group);
-  for (; i < iters; ++i) iterate<V, kLanes, kRedux, 1>(v, acc, group);
+    iterate<V, kLanes, kRedux, kFlight>(v, acc);
+  for (; i < iters; ++i) iterate<V, kLanes, kRedux, 1>(v, acc);
   if (sub == 0) out[col] = acc;
 }
 
-template <typename V, int kLanes, bool kRedux>
-void launch_lanes_k(const V* v0, V* out, int iters, int grid,
-                    cudaStream_t st) {
-  reduce_lanes<V, kLanes, kRedux><<<grid * kT * kLanes / 64, 64, 0, st>>>(
-      v0, out, iters, grid);
-}
-
-// lanes_log = log2(32 / k): 0 is a warp a column
-template <typename V, bool kRedux>
-int launch_lanes(int lanes_log, const V* v0, V* out, int iters, int grid,
-                 cudaStream_t st) {
-  switch (lanes_log) {
-    case 0: launch_lanes_k<V, 32, kRedux>(v0, out, iters, grid, st); break;
-    case 1: launch_lanes_k<V, 16, kRedux>(v0, out, iters, grid, st); break;
-    case 2: launch_lanes_k<V, 8, kRedux>(v0, out, iters, grid, st); break;
-    case 3: launch_lanes_k<V, 4, kRedux>(v0, out, iters, grid, st); break;
-    case 4: launch_lanes_k<V, 2, kRedux>(v0, out, iters, grid, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return 0;
-}
-
 template <typename V>
-int launch_reduce(int way, int lanes_log, const V* v0, V* out, int iters,
-                  int grid, cudaStream_t st) {
+int launch_reduce(int way, const V* v0, V* out, int iters, int grid,
+                  cudaStream_t st) {
   if (way == 0) {
-    if (lanes_log != 0) return (int)cudaErrorInvalidValue;
     reduce_serial<V><<<(grid * kT + 127) / 128, 128, 0, st>>>(v0, out, iters,
                                                              grid);
-    return 0;
+  } else if (way == 1) {
+    reduce_lanes<V, kShuffleLanes, false>
+        <<<grid * kT * kShuffleLanes / 64, 64, 0, st>>>(v0, out, iters, grid);
+  } else if (way == 2) {
+    if constexpr (std::is_same_v<V, int>)
+      reduce_lanes<V, kReduxLanes, true>
+          <<<grid * kT * kReduxLanes / 64, 64, 0, st>>>(v0, out, iters, grid);
+    else
+      return (int)cudaErrorInvalidValue;   // __reduce_min_sync: int32 only
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  if (way == 1) return launch_lanes<V, false>(lanes_log, v0, out, iters, grid,
-                                              st);
-  if (way == 2) return launch_lanes<V, true>(lanes_log, v0, out, iters, grid,
-                                             st);
-  return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 // ------------------------------------------------------------------ M4
@@ -1039,8 +1004,8 @@ visit_warp(const float* __restrict__ salt, const float* __restrict__ sphT,
 // (0 mul+add, 1 fma, 2 sqrt, 3 div, 4 1/x), arg = streams, size = n elements;
 // probe 1 (M2): variant = route (0 fp32, 1 tf32, 2 3xtf32), arg = kind
 // (0 pair, 1 pairT, 2 payload), size = grid; probe 2 (M3): variant = way
-// (0 serial, 1 shuffle, 2 __reduce_min_sync), arg = dtype (0 f32, 1 i32)
-// + 2 log2(32 / k) for k lanes a column (0 for serial), size = grid; probe 3
+// (0 serial, 1 shuffle, 2 __reduce_min_sync), arg = dtype (0 f32, 1 i32),
+// size = grid; probe 3
 // (M4): variant = way (0 thread, 1 warp), size = rays.
 extern "C" int rt_microbench_launch(int probe, int variant, int arg,
                                     int iters, int size, const float* salt,
@@ -1088,14 +1053,14 @@ extern "C" int rt_microbench_launch(int probe, int variant, int arg,
       break;
     }
     case 2:
-      if ((arg & 1) == 0)
-        rc = launch_reduce<float>(variant, arg >> 1,
-                                  static_cast<const float*>(in0),
+      if (arg == 0)
+        rc = launch_reduce<float>(variant, static_cast<const float*>(in0),
                                   static_cast<float*>(out), iters, size, st);
-      else
-        rc = launch_reduce<int>(variant, arg >> 1,
-                                static_cast<const int*>(in0),
+      else if (arg == 1)
+        rc = launch_reduce<int>(variant, static_cast<const int*>(in0),
                                 static_cast<int*>(out), iters, size, st);
+      else
+        return (int)cudaErrorInvalidValue;
       break;
     case 3: {
       const float* sphT = static_cast<const float*>(in0);

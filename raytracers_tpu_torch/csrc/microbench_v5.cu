@@ -180,19 +180,26 @@ int launch_visit(int way, int rows, const float* salt, const float* sphT,
 // ------------------------------------------------------------------ M6
 // The width W is a template (128 or 512 slots), so a lane's slot starts at
 // (j * 37) & (W - 1) and steps by an increment and a mask: no division.
-// Ways (the C entry's codes; 0 was the field-major __ldg route, which K1
-// does not read):
+// Ways (the C entry's codes):
+//   0 __ldg, slot-major: the (W, 8) copy the wrapper makes, each slot's 8
+//     fields as two float4 (16-byte) loads, as K1 reads its winner's
+//     payload (csrc/megakernel.cu).  Two limits of L1 hold it at about
+//     twice its bytes' time (probes/m3m6_turns.py, load_model and its side
+//     builds): a warp's load takes a wavefront for each lane that meets
+//     another in one of 8 16-byte bank groups at another address, and
+//     every lower half lies in an even group, so 8 wavefronts a load
+//     against its bytes' 4; and L1 takes about 3 distinct lines a cycle,
+//     against the 25.75 (W = 128) and 32 (W = 512) lines of this probe's
+//     scattered slots.  Alternating the halves' order across lanes halves
+//     the wavefronts but not the lines: no gain here, so K1's order stays;
 //   1 shared memory, field-major: the block stages the (8, W) table as it
 //     is and reads 8 words a lane-step; 37 is odd, so a warp's 32 lanes
 //     read 32 banks.  A slot-major staging, padded to 12 words a slot so
-//     that two float4 loads meet no bank conflict, ran 0.5-0.7% slower;
-//   2 __ldg, slot-major: the (W, 8) copy the wrapper makes, each slot's 8
-//     fields as two float4 (16-byte) loads, as K1 reads its winner's
-//     payload (csrc/megakernel.cu).  Its time follows the distinct 128-byte
-//     lines a warp's load touches, not its bytes.
+//     that two float4 loads meet no bank conflict, ran 0.5-0.7% slower.
 // Blocks of the shared way loop over tiles of 256 lanes, so that the table
-// is staged once for each block the card holds at a time.
-enum { kGatherSmem = 1, kGatherLdgSlots = 2 };
+// is staged once for each block the card holds at a time, not once a tile.
+enum { kGatherLdgSlots = 0, kGatherSmem = 1 };
+constexpr int kSlotStride = 37;   // slots between neighbouring lanes
 
 template <int kWidth, int kWay>
 __global__ void __launch_bounds__(256)
@@ -206,7 +213,7 @@ gather_probe(const float* __restrict__ tbl, float* __restrict__ out,
   }
   for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < n;
        g += gridDim.x * blockDim.x) {
-    int slot = (g % kT) * 37 & (kWidth - 1);
+    int slot = (g % kT) * kSlotStride & (kWidth - 1);
     float acc = 0.0f;
 #pragma unroll 4
     for (int i = 0; i < iters; ++i) {
@@ -269,9 +276,9 @@ int launch_gather_way(int way, const float* tbl, float* out, int iters,
 
 // One entry point for both probes.  probe 0 (M5): way (0 thread, 1 warp),
 // width = rows (32, 64, 128), payload (0 mxu, 1 defer), size = rays, in0 =
-// sphT, in1 = sph8; probe 1 (M6): way (1 shared memory, 2 __ldg
-// slot-major), width = chunks (1 or 4), size = lanes, in0 = the table,
-// (8, W) for way 1 and (W, 8) for way 2.  size is a multiple of 512.  The
+// sphT, in1 = sph8; probe 1 (M6): way (0 __ldg slot-major, 1 shared
+// memory), width = chunks (1 or 4), size = lanes, in0 = the table, (W, 8)
+// for way 0 and (8, W) for way 1.  size is a multiple of 512.  The
 // salt of M6 is not read.
 extern "C" int rt_microbench_v5_launch(int probe, int way, int width,
                                        int payload, int iters, int size,

@@ -12,10 +12,10 @@ same four questions of the H100, with hand-written CUDA
 * M2 (``dot_kernel``): the v4 kernel's small products (pair, pairT,
   payload) as an FP32 loop of fixed order, and as TF32 and 3xTF32
   ``wgmma``;
-* M3 (``reduce_kernel``): a 128-key minimum by one thread's serial loop, or
-  by k lanes a column (2 to 32), each a tree of its 128/k keys, then a
-  shuffle butterfly or ``__reduce_min_sync`` over the k lanes (float keys
-  on their order-preserving integer image, ``order_key``);
+* M3 (``reduce_kernel``): a 128-key minimum by one thread's serial loop,
+  by 8 lanes a column, each a tree of its 16 keys, then a shuffle
+  butterfly over the 8, or (int32 keys) by a warp a column and
+  ``__reduce_min_sync``;
 * M4 (``visit_kernel``): one 128-sphere cluster visit, one thread per ray
   (K1's design) against a warp per ray, at 4k, 64k and 1M rays.
 
@@ -54,7 +54,8 @@ import torch
 
 from .. import vec
 from ..utils.platform import resolve_device
-from ..utils.profiling import FP32_LANE_OPS_PER_S, HBM_BYTES_PER_S
+from ..utils.profiling import (FP32_LANE_OPS_PER_S, HBM_BYTES_PER_S,
+                               device_ms)
 
 F32, I32 = torch.float32, torch.int32
 T, ROWS = 256, 128                # the TPU probes' lane width and rows
@@ -73,7 +74,8 @@ DOT_SHAPES = {"pair": ((ROWS, 8), (8, T), (ROWS, T)),
               "payload": ((8, ROWS), (ROWS, T), (8, T))}
 REDUCE_DTYPES = {"f32": F32, "int32": I32}
 REDUCE_WAYS = ("serial", "shuffle", "redux")
-REDUCE_LANES = (2, 4, 8, 16, 32)      # lanes a column of the warp ways
+# lanes a column of each way (csrc/microbench.cu kShuffleLanes, kReduxLanes)
+REDUCE_LANES = {"serial": 1, "shuffle": 8, "redux": 32}
 REDUCE_ITERS, REDUCE_GRID = 512, 16
 VISIT_WAYS = ("thread", "warp")
 VISIT_ITERS = 256
@@ -289,56 +291,35 @@ def dot_tolerance(route, kind, mag, running):
 
 # ---------------------------------------------------------------- M3
 
-def reduce_label(dtype: str, way: str, lanes: int | None = None) -> str:
-    return f"M3 {dtype} {way}" + ("" if way == "serial" else f" k{lanes}")
+def reduce_label(dtype: str, way: str) -> str:
+    return f"M3 {dtype} {way}"
 
 
 def reduce_routes() -> list:
-    """Every M3 route: (dtype, way, lanes a column or None)."""
-    return [(d, w, k) for d in REDUCE_DTYPES for w in REDUCE_WAYS
-            for k in ((None,) if w == "serial" else REDUCE_LANES)]
+    """Every M3 route, (dtype, way): ``redux`` takes int32 keys only."""
+    return [(d, w) for d in REDUCE_DTYPES for w in REDUCE_WAYS
+            if not (w == "redux" and d == "f32")]
 
 
-def reduce_min(v0, iters=REDUCE_ITERS, grid=REDUCE_GRID, way="serial",
-               lanes=None):
+def reduce_min(v0, iters=REDUCE_ITERS, grid=REDUCE_GRID, way="serial"):
     """M3: acc = sum over ``iters`` of the column minima of v (128, 256),
     v += 1 after each; out (grid, 1, 256) in v0's type (float32 or int32).
-    ``way``: one thread's serial loop, or ``lanes`` lanes a column (2 to
-    32, 32 where not given) reduced by a shuffle butterfly or
-    ``__reduce_min_sync``."""
+    ``way``: one thread's serial loop, 8 lanes a column and a shuffle
+    butterfly, or a warp a column and ``__reduce_min_sync`` (int32 only)."""
     if v0.dtype not in (F32, I32):
         raise ValueError(f"M3 takes float32 or int32 keys, not {v0.dtype}")
     _expect(v0, (ROWS, T), v0.dtype, "M3 v0")
     dname = "f32" if v0.dtype == F32 else "int32"
-    if way == "serial":
-        ok, code = lanes is None, 0
-    else:
-        lanes = 32 if lanes is None else lanes
-        ok = way in REDUCE_WAYS and lanes in REDUCE_LANES
-        code = 2 * int(math.log2(32 // lanes)) if ok else 0
-    if not ok:
-        raise ValueError(f"M3: way {way!r} with {lanes} lanes a column")
+    if (dname, way) not in reduce_routes():
+        raise ValueError(f"M3: way {way!r} for {dname} keys")
     if iters < 0 or grid < 1:
         raise ValueError(f"M3: iters {iters}, grid {grid}")
     if not _on_card(v0):
         return reduce_plain(v0, iters, grid)
     out = torch.empty((grid, 1, T), dtype=v0.dtype, device=v0.device)
-    return _launch(reduce_label(dname, way, lanes), out, 2,
-                   REDUCE_WAYS.index(way), code + (v0.dtype == I32), iters,
-                   grid, None, v0, None, out)
-
-
-def order_key(v: torch.Tensor) -> torch.Tensor:
-    """The int32 image of float32 keys that the ``redux`` way takes its
-    minimum of (csrc/microbench.cu ``order_key``): b ^ ((b >> 31) &
-    0x7fffffff) on the bits b, so that integer order is float order for
-    every non-NaN key (-0 below +0); it is its own inverse."""
-    b = v.view(I32)
-    return b ^ ((b >> 31) & 0x7FFFFFFF)
-
-
-def from_order_key(k: torch.Tensor) -> torch.Tensor:
-    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(F32)
+    return _launch(reduce_label(dname, way), out, 2, REDUCE_WAYS.index(way),
+                   0 if v0.dtype == F32 else 1, iters, grid, None, v0, None,
+                   out)
 
 
 def reduce_plain(v0, iters=REDUCE_ITERS, grid=REDUCE_GRID):
@@ -613,31 +594,10 @@ def _timed(fn, min_window_ms=150.0, min_runs=3, max_runs=2000):
 DEVICE_MS_BELOW = 0.05
 
 
-def device_ms(fn, window_ms: float, runs: int = 20) -> float:
-    """The device's own time of one call of ``fn``: ``runs`` calls enqueued
-    behind a spin kernel (``torch.cuda._sleep``) that outlasts their
-    enqueue (``window_ms``, the windowed time of a call, bounds the host's
-    cost of one), between two CUDA events, over ``runs``.  The host's cost
-    of a call is not in it, the device's gaps between launches are.  It
-    agrees with torch.profiler's kernel times (``device_profile``), which
-    this process does not start: a profiled process pays more host time a
-    launch afterwards."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(3 * runs * window_ms * 1e-3 * SM_CLOCK_HZ) + 10 ** 6)
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / runs
-
-
 def _device_entry(fn, window_ms) -> dict:
-    """``device_ms`` where ``window_ms`` is under ``DEVICE_MS_BELOW``."""
-    return (dict(device_ms=device_ms(fn, window_ms))
+    """The device's own time of a call (``utils.profiling.device_ms``)
+    where ``window_ms`` is under ``DEVICE_MS_BELOW``."""
+    return (dict(device_ms=device_ms(fn, window_ms, clock_hz=SM_CLOCK_HZ))
             if window_ms < DEVICE_MS_BELOW else {})
 
 
@@ -921,18 +881,14 @@ def _reduce_inputs(dtype, which, dev):
     return v.to(dev)
 
 
-def run_m3(dev, log=print, routes=None):
-    """Every M3 route of ``routes`` (``reduce_routes()``), on the TPU
-    probe's keys and the seeded ones: timed, with the device's own time
-    where the window's is under ``DEVICE_MS_BELOW``, and bit-equal to
-    ``reduce_plain`` (raises ``ProbeMismatch``)."""
+def run_m3(dev, log=print):
+    """Every M3 route (``reduce_routes()``), on the TPU probe's keys and
+    the seeded ones: timed, with the device's own time where the window's
+    is under ``DEVICE_MS_BELOW``, and bit-equal to ``reduce_plain`` (raises
+    ``ProbeMismatch``)."""
     from ..utils.timing import cuda_ms
-    routes = reduce_routes() if routes is None else routes
     out = []
     for dtype in REDUCE_DTYPES:
-        mine = [(w, k) for d, w, k in routes if d == dtype]
-        if not mine:
-            continue
         v_tpu = _reduce_inputs(dtype, "tpu", dev)
         # the library call: torch.amin(dim=1) over the grid x iters blocks
         batch = (v_tpu[None] + torch.arange(REDUCE_ITERS, device=dev)
@@ -942,13 +898,13 @@ def run_m3(dev, log=print, routes=None):
         refs = {w: _plain_timed(lambda: reduce_plain(
             _reduce_inputs(dtype, w, dev), REDUCE_ITERS, REDUCE_GRID))
             for w in ("tpu", "seeded")}
-        for way, lanes in mine:
-            label = reduce_label(dtype, way, lanes)
+        for way in (w for d, w in reduce_routes() if d == dtype):
+            label = reduce_label(dtype, way)
             times, calls = {}, {}
             for which in ("tpu", "seeded"):
                 v = _reduce_inputs(dtype, which, dev)
                 calls[which] = lambda v=v: reduce_min(  # noqa: E731
-                    v, REDUCE_ITERS, REDUCE_GRID, way, lanes)
+                    v, REDUCE_ITERS, REDUCE_GRID, way)
                 ms, y, _, runs = _timed(calls[which], min_window_ms=50.0)
                 _bit_equal(f"{label} ({which})", y, refs[which][0])
                 times[which] = ms
@@ -956,7 +912,7 @@ def run_m3(dev, log=print, routes=None):
                        (*reduce_work(REDUCE_ITERS, REDUCE_GRID),
                         FP32_LANE_OPS_PER_S), refs["tpu"][1], 0.0, lib_ms,
                        pipes=reduce_pipes(REDUCE_ITERS, REDUCE_GRID, dtype),
-                       dtype=dtype, way=way, lanes=lanes,
+                       dtype=dtype, way=way, lanes=REDUCE_LANES[way],
                        ms_seeded=times["seeded"],
                        ns_per_reduce=times["tpu"] * 1e6
                        / (REDUCE_GRID * REDUCE_ITERS),

@@ -63,11 +63,9 @@ ROWS = (32, 64, 128)
 PAYLOADS = ("mxu", "defer")
 CHUNKS = (4, 1)
 VISIT_WAYS = ("thread", "warp")
-# way -> (the C entry's way code, whether the kernel reads the slot-major
-# (W, 8) copy): __ldg from the copy, K1's layout; the table staged in
-# shared memory as it is
-GATHER_ROUTES = {"ldg": (2, True), "smem": (1, False)}
-GATHER_WAYS = tuple(GATHER_ROUTES)
+# the C entry's way codes: __ldg from the slot-major (W, 8) copy, K1's
+# layout; the (8, W) table staged in shared memory as it is
+GATHER_WAYS = ("ldg", "smem")
 RAYS = (GRID * T, 256 * 256, 1 << 20)   # the TPU's grid, 256^2, ~1000^2
 LANES = (GRID * T, 1 << 20)
 INPUTS = ("tpu", "seeded")
@@ -217,30 +215,27 @@ def gather_label(chunks: int, way: str, n_lanes: int) -> str:
     return f"M6 paygather_c{chunks} {way} {n_lanes}"
 
 
-def gather(salt, tbl, n_lanes, chunks, way="ldg", iters=GATHER_ITERS,
-           routes=None):
+def gather(salt, tbl, n_lanes, chunks, way="ldg", iters=GATHER_ITERS):
     """M6: for ``iters`` steps i, each lane (j % 512) adds the sum of the 8
     fields, in field order, of slot (lane * 37 + i) mod (chunks * 128) of
     ``tbl`` (8, chunks * 128) to a running sum; out (n_lanes / 512, 1, 512).
-    ``way`` (``GATHER_ROUTES``): ``ldg`` reads the slot-major copy
-    (``slot_major``, made in the call) through ``__ldg``; ``smem`` stages
-    the table in shared memory.  ``routes`` maps ways to another build's
-    codes (a probe of two builds in turns).  The TPU probe adds salt * 0.0 to the table,
-    which changes no value but -0; neither version does."""
-    routes = GATHER_ROUTES if routes is None else routes
+    ``way``: ``ldg`` reads the slot-major copy (``slot_major``, made in the
+    call) through ``__ldg``; ``smem`` stages the table in shared memory.
+    The TPU probe adds salt * 0.0 to the table, which changes no value but
+    -0; neither version does."""
     _expect(salt, (1,), F32, "salt")
     _expect(tbl, (8, chunks * 128), F32, "M6 tbl")
-    if (chunks not in CHUNKS or way not in routes or n_lanes < T
+    if (chunks not in CHUNKS or way not in GATHER_WAYS or n_lanes < T
             or n_lanes % T or iters < 0):
         raise ValueError(f"M6: chunks {chunks}, way {way!r}, {n_lanes} lanes,"
                          f" iters {iters}")
     if not _on_card(salt, tbl):
         return gather_plain(salt, tbl, n_lanes, chunks, iters)
-    code, slots = routes[way]
     out = torch.empty((n_lanes // T, 1, T), dtype=F32, device=salt.device)
-    return _launch(gather_label(chunks, way, n_lanes), out, 1, code, chunks, 0,
-                   iters, n_lanes, salt, slot_major(tbl) if slots else tbl,
-                   None, out, kernel="microbench_v5")
+    return _launch(gather_label(chunks, way, n_lanes), out, 1,
+                   GATHER_WAYS.index(way), chunks, 0, iters, n_lanes, salt,
+                   slot_major(tbl) if way == "ldg" else tbl, None, out,
+                   kernel="microbench_v5")
 
 
 def slot_major(tbl):
@@ -396,12 +391,17 @@ def _gather_library_ms(tbl, chunks, n_lanes):
     return cuda_ms(lambda: tbl[:, slots].sum(0).sum(0), warmup=1, runs=3)
 
 
-def run_m6(dev, log=print, routes=None):
-    """Every M6 way of ``routes`` (``GATHER_ROUTES``) at each width and
-    lane count, on the TPU probe's table and the seeded one: timed, with
-    the device's own time where the window's is under ``DEVICE_MS_BELOW``,
-    and bit-equal to ``gather_plain`` (raises ``ProbeMismatch``)."""
-    routes = GATHER_ROUTES if routes is None else routes
+def run_m6(dev, log=print):
+    """Every M6 way at each width and lane count, on the TPU probe's table
+    and the seeded one: timed, with the device's own time where the
+    window's is under ``DEVICE_MS_BELOW``, and bit-equal to
+    ``gather_plain`` (raises ``ProbeMismatch``)."""
+    return _run_m6(dev, log, gather)
+
+
+def _run_m6(dev, log, gather_fn):
+    """``run_m6`` through ``gather_fn``, ``gather``'s signature (another
+    build's launcher, for a probe of two builds in turns)."""
     salt = torch.tensor([SALT], dtype=F32, device=dev)
     out = []
     warm_plain(salt)
@@ -412,11 +412,11 @@ def run_m6(dev, log=print, routes=None):
                 lambda: gather_plain(salt, tbl, T, chunks, GATHER_ITERS))
             for n_lanes in LANES:
                 lib_ms = _gather_library_ms(tbl, chunks, n_lanes)
-                for way in routes:
+                for way in GATHER_WAYS:
                     label = gather_label(chunks, way, n_lanes)
                     name = f"{label} lanes ({which})"
-                    call = lambda: gather(salt, tbl, n_lanes, chunks,  # noqa: E731
-                                          way, GATHER_ITERS, routes)
+                    call = lambda: gather_fn(  # noqa: E731
+                        salt, tbl, n_lanes, chunks, way, GATHER_ITERS)
                     ms, y, _, runs = _timed(call, min_window_ms=50.0)
                     _bit_equal(name, y, ref[0:1].expand_as(y))
                     e = _entry("M6", name, label, ms, runs,

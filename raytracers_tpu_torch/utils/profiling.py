@@ -5,7 +5,8 @@ Counterpart of ``raytracers_tpu.utils.profiling`` over ``torch.profiler``:
 (Perfetto or chrome://tracing open it), ``device_kernel_ms`` reads the
 device's kernel time by name back from such traces, ``device_profile``
 sums one call's device time, busy share and idle gaps from the profiler's
-events.  ``Metrics`` and ``timed`` are the JAX package's structured metrics
+events, ``device_ms`` times a call on the device's clock without the
+profiler.  ``Metrics`` and ``timed`` are the JAX package's structured metrics
 and wall-clock phase timer.
 
 The rest is the roofline model of the card that every bound of the port
@@ -192,6 +193,30 @@ def device_profile(fn) -> dict | None:
                 top_kernels_ms=[[name[:60], us / 1e3] for name, us in top],
                 largest_gaps_ms=[list(g) for g in gaps[:5]],
                 gaps_next_to_k1_ms=k1_gap_ms)
+
+
+def device_ms(fn, window_ms: float, runs: int = 20,
+              clock_hz: float = 1.98e9) -> float:
+    """The device's own time of one call of ``fn``: ``runs`` calls enqueued
+    behind a spin kernel (``torch.cuda._sleep``, its cycles at
+    ``clock_hz``) that outlasts their enqueue (``window_ms``, the windowed
+    time of a call, bounds the host's cost of one), between two CUDA
+    events, over ``runs``.  The host's cost of a call is not in it, the
+    device's gaps between launches are.  It agrees with torch.profiler's
+    kernel times (``device_profile``), which a timing process should not
+    start before its windows: a profiled process pays more host time a
+    launch afterwards."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3 * runs * window_ms * 1e-3 * clock_hz) + 10 ** 6)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 # ---- metrics ----------------------------------------------------------------

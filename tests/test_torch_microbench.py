@@ -251,13 +251,34 @@ def test_reduce_plain_vs_jax(dtype):
     assert p.dtype == o.dtype and (p == o).all()
 
 
+# k of the card's sweep (probes/m3m6_turns.py): the kernels keep 8 lanes a
+# column for the shuffle way and 32 for the redux way (mb.REDUCE_LANES)
+SWEEP_LANES = (2, 4, 8, 16, 32)
+
+
+def _order_key(v: torch.Tensor) -> torch.Tensor:
+    """The int32 image of float32 keys on which a REDUX route for float
+    keys takes its minimum: b ^ ((b >> 31) & 0x7fffffff) on the bits b, so
+    that integer order is float order for every non-NaN key (-0 below +0);
+    it is its own inverse.  The card measured that route at every k and
+    the shuffle way beat it (docs/M3M6_SWEEP_H100.json), so the kernels
+    take REDUX on int32 keys only; the model keeps the claim checked."""
+    b = v.view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _from_order_key(k: torch.Tensor) -> torch.Tensor:
+    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
 def _lanes_model(v0, iters, lanes, way):
     """The k-lane route of csrc/microbench.cu on the CPU: lane ``sub`` of a
     column's ``lanes`` holds rows ``rows[sub::lanes]``, takes their minimum
     as a tree (w[e] = min(w[e], w[e + h]), h halving; a tie keeps the left
     operand, so a -0/+0 tie may yield either zero), then the group's
     minimum by a butterfly (the same tie rule) or, for ``redux``, the
-    minimum of the order keys; acc adds it, keys get + 1."""
+    minimum of the keys (of the order keys for float keys); acc adds it,
+    keys get + 1."""
     v = v0.numpy().copy()
     one = v.dtype.type(1)
     acc = np.zeros(T, v.dtype)
@@ -276,10 +297,10 @@ def _lanes_model(v0, iters, lanes, way):
         if way == "redux":
             keys = np.stack(parts)
             if keys.dtype == np.float32:
-                keys = mb.order_key(torch.from_numpy(keys)).numpy()
+                keys = _order_key(torch.from_numpy(keys)).numpy()
             m = keys.min(0)
             if v.dtype == np.float32:
-                m = mb.from_order_key(torch.from_numpy(m)).numpy()
+                m = _from_order_key(torch.from_numpy(m)).numpy()
         else:
             o = lanes // 2
             while o >= 1:
@@ -299,7 +320,7 @@ _SPECIAL = [0.0, -0.0, -1.0, 1.0, -2.0, 2.5, -3.5e-39, 3.5e-39, -1e30,
 @given(st.lists(st.floats(width=32, allow_nan=False), min_size=1,
                 max_size=64),
        st.sampled_from(["float32", "int32"]),
-       st.sampled_from(mb.REDUCE_LANES), st.sampled_from(["shuffle", "redux"]),
+       st.sampled_from(SWEEP_LANES), st.sampled_from(["shuffle", "redux"]),
        st.integers(0, 2 ** 32 - 1))
 def test_lanes_model_equals_reduce_plain(pool, dtype, lanes, way, seed):
     """A tree minimum of 128/k keys in any grouping, across k lanes by a
@@ -324,11 +345,11 @@ def test_lanes_model_equals_reduce_plain(pool, dtype, lanes, way, seed):
 @given(st.floats(width=32, allow_nan=False),
        st.floats(width=32, allow_nan=False))
 def test_order_key_orders_and_round_trips(a, b):
-    """order_key: integer order is float order for every non-NaN float32
-    (-0 below +0), and from_order_key inverts it bit for bit."""
+    """_order_key: integer order is float order for every non-NaN float32
+    (-0 below +0), and _from_order_key inverts it bit for bit."""
     x = torch.tensor([a, b], dtype=torch.float32)
-    k = mb.order_key(x)
-    assert torch.equal(mb.from_order_key(k).view(torch.int32),
+    k = _order_key(x)
+    assert torch.equal(_from_order_key(k).view(torch.int32),
                        x.view(torch.int32))
     fa, fb = float(x[0]), float(x[1])
     if fa < fb:
@@ -500,9 +521,9 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     v = mb._reduce_inputs("int32", "seeded", "cpu")
     assert torch.equal(mb.reduce_min(v, 3, 2, "redux"),
                        mb.reduce_plain(v, 3, 2))
-    for dtype, way, lanes in mb.reduce_routes():
+    for dtype, way in mb.reduce_routes():
         v = mb._reduce_inputs(dtype, "seeded", "cpu")
-        assert torch.equal(mb.reduce_min(v, 3, 2, way, lanes),
+        assert torch.equal(mb.reduce_min(v, 3, 2, way),
                            mb.reduce_plain(v, 3, 2))
     sphT, sph8 = (torch.from_numpy(x) for x in mb.visit_inputs("seeded"))
     assert torch.equal(mb.visit(s, sphT, sph8, 512, 2, "warp"),
@@ -511,28 +532,27 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
 
 
 def test_reduce_routes_and_their_codes(monkeypatch):
-    """22 routes, one label each; the C entry's arg is the dtype (0 f32, 1
-    int32) + 2 log2(32 / k), so a warp a column (k = 32) and the serial
-    loop pass the dtype alone, as the parent's kernels take it."""
+    """Five routes, one label each (REDUX takes int32 keys only); the C
+    entry's variant is the way (0 serial, 1 shuffle, 2 redux) and its arg
+    the dtype (0 f32, 1 int32), as the parent's kernels take them."""
     routes = mb.reduce_routes()
-    assert len(routes) == 2 * (1 + 2 * len(mb.REDUCE_LANES))
+    assert routes == [("f32", "serial"), ("f32", "shuffle"),
+                      ("int32", "serial"), ("int32", "shuffle"),
+                      ("int32", "redux")]
     assert len({mb.reduce_label(*r) for r in routes}) == len(routes)
-    assert mb.reduce_label("f32", "shuffle", 4) == "M3 f32 shuffle k4"
-    assert mb.reduce_label("int32", "serial") == "M3 int32 serial"
+    assert mb.reduce_label("f32", "shuffle") == "M3 f32 shuffle"
+    assert mb.REDUCE_LANES == {"serial": 1, "shuffle": 8, "redux": 32}
     seen = []
     monkeypatch.setattr(mb, "_on_card", lambda *ts: True)
     monkeypatch.setattr(mb, "_launch",
                         lambda label, out, *args, **kw: seen.append(
                             (label,) + args[:3]))
-    for dtype, way, lanes in routes:
-        mb.reduce_min(mb._reduce_inputs(dtype, "tpu", "cpu"), 4, 1, way,
-                      lanes)
+    for dtype, way in routes:
+        mb.reduce_min(mb._reduce_inputs(dtype, "tpu", "cpu"), 4, 1, way)
     codes = {label: (way, arg) for label, _, way, arg in seen}
-    assert codes["M3 f32 serial"] == (0, 0)
-    assert codes["M3 int32 redux k32"] == (2, 1)
-    assert codes["M3 f32 shuffle k32"] == (1, 0)
-    assert codes["M3 f32 shuffle k2"] == (1, 8)
-    assert codes["M3 int32 shuffle k4"] == (1, 7)
+    assert codes == {"M3 f32 serial": (0, 0), "M3 f32 shuffle": (1, 0),
+                     "M3 int32 serial": (0, 1), "M3 int32 shuffle": (1, 1),
+                     "M3 int32 redux": (2, 1)}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -544,13 +564,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
            lambda: mb.dot(s, a.t().contiguous(), b, "pair"),
            lambda: mb.dot(s, a, b, "pair", 4, 1, "fp16"),
            lambda: mb.reduce_min(mb._reduce_inputs("f32", "tpu", "cpu"),
-                                 4, 1, "redux", 64),
-           lambda: mb.reduce_min(mb._reduce_inputs("f32", "tpu", "cpu"),
-                                 4, 1, "shuffle", 1),
-           lambda: mb.reduce_min(mb._reduce_inputs("int32", "tpu", "cpu"),
-                                 4, 1, "serial", 32),
+                                 4, 1, "redux"),
            lambda: mb.reduce_min(mb._reduce_inputs("int32", "tpu", "cpu"),
                                  4, 1, "butterfly"),
+           lambda: mb.reduce_min(mb._reduce_inputs("int32", "tpu", "cpu"),
+                                 -1, 1, "shuffle"),
            lambda: mb.reduce_min(torch.zeros(LANE, T, dtype=torch.int64)),
            lambda: mb.visit(s, torch.zeros(LANE, 8), torch.zeros(8, LANE),
                             300)]
@@ -682,12 +700,12 @@ def test_turns_rows_and_rerecord(tmp_path, monkeypatch):
                     old_bound_ms=0.016, ms_seeded=ms, **kw)
     turns = []
     for i, b in enumerate(tm.ORDER):
-        es = [e("M3 f32 shuffle k32", 0.05 + i * 1e-4)]
+        es = [e("M3 f32 shuffle", 0.05 + i * 1e-4)]
         if b == "change":
-            es.append(e("M3 f32 shuffle k4", 0.03, device_ms=0.027))
+            es.append(e("M3 f32 k-lane", 0.03, device_ms=0.027))
         turns.append(dict(build=b, entries=es))
     rows = {r["name"]: r for r in tm.rows_of(turns, log=lambda *a: None)}
-    k32, k4 = rows["M3 f32 shuffle k32"], rows["M3 f32 shuffle k4"]
+    k32, k4 = rows["M3 f32 shuffle"], rows["M3 f32 k-lane"]
     assert len(k32["ms"]["parent"]) == len(k32["ms"]["change"]) == 4
     assert k32["parent_over_change"] == pytest.approx(
         k32["median_ms"]["parent"] / k32["median_ms"]["change"])
@@ -707,8 +725,7 @@ def test_turns_rows_and_rerecord(tmp_path, monkeypatch):
                 Path("x.so"), log=lambda *a: None)
     out = json.loads(path.read_text())
     m3 = [x for x in out["entries"] if x["probe"] == "M3"]
-    assert [x["name"] for x in m3] == ["M3 f32 shuffle k32",
-                                       "M3 f32 shuffle k4"]
+    assert [x["name"] for x in m3] == ["M3 f32 shuffle", "M3 f32 k-lane"]
     assert [x["probe"] for x in out["entries"]] == sorted(
         (x["probe"] for x in out["entries"]), key=lambda p: int(p[1:]))
     old_m1 = [x for x in rec["entries"] if x["probe"] == "M1"]
@@ -788,16 +805,17 @@ def test_card_dot_sass_runs_tf32_on_wgmma(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["tpu", "seeded"])
-@pytest.mark.parametrize("dtype,way,lanes", mb.reduce_routes())
-def test_card_reduce_equals_plain(cuda, dtype, way, lanes, which):
+@pytest.mark.parametrize("iters", [0, 1, 4, 9])
+@pytest.mark.parametrize("dtype,way", mb.reduce_routes())
+def test_card_reduce_equals_plain(cuda, dtype, way, iters, which):
     """Every route bit-equal to reduce_plain; 9 iterations cross the
-    in-flight batch of 4 and its remainder."""
+    in-flight batch of 4 and its remainder, 1 is the remainder alone."""
     v = mb._reduce_inputs(dtype, which, cuda)
-    label = mb.reduce_label(dtype, way, lanes)
+    label = mb.reduce_label(dtype, way)
     n0 = mb.LAUNCHES[label]
-    y = mb.reduce_min(v, 9, 3, way, lanes)
+    y = mb.reduce_min(v, iters, 3, way)
     assert mb.LAUNCHES[label] == n0 + 1
-    assert torch.equal(y, mb.reduce_plain(v, 9, 3))
+    assert torch.equal(y, mb.reduce_plain(v, iters, 3))
 
 
 @pytest.mark.cuda
@@ -807,9 +825,9 @@ def test_card_reduce_keeps_ties_of_zeros_and_infinities(cuda):
     rng = np.random.default_rng(3)
     vals = np.array(_SPECIAL, np.float32)
     v = torch.from_numpy(rng.choice(vals, (LANE, T))).to(cuda)
-    for dtype, way, lanes in mb.reduce_routes():
+    for dtype, way in mb.reduce_routes():
         if dtype == "f32":
-            assert torch.equal(mb.reduce_min(v, 6, 2, way, lanes).view(
+            assert torch.equal(mb.reduce_min(v, 6, 2, way).view(
                 torch.int32), mb.reduce_plain(v, 6, 2).view(torch.int32))
 
 
@@ -841,10 +859,10 @@ def test_card_reduce_serial_sass_keeps_the_minima_in_the_loop(cuda):
 
 @pytest.mark.cuda
 def test_card_reduce_sass_keeps_the_minima_in_the_loop(cuda):
-    """The k-lane kernels: every iteration's minima are issued (at least
-    5 (128/k - 1) two-operand minima, a VIMNMX3 counting two and a
-    VIADDMNMX one; 4 in-flight
-    iterations and the remainder's: no
+    """The k-lane kernels (the shuffle way at k = 8 for both key types,
+    the redux way at k = 32 for int32 keys): every iteration's minima are
+    issued (at least 5 (128/k - 1) two-operand minima, a VIMNMX3 counting
+    two and a VIADDMNMX one; 4 in-flight iterations and the remainder's: no
     minimum is taken once and shifted by the increments), float minima as
     FMNMX (no compare and select), log2(k) shuffles an iteration on the
     shuffle way and one REDUX on the redux way; the keys stay in registers
@@ -853,7 +871,10 @@ def test_card_reduce_sass_keeps_the_minima_in_the_loop(cuda):
     _cuda.load("microbench")
     counts, _ = mb.sass_counts(_cuda.build_info["microbench"]["path"])
     lanes = {f: c for f, c in counts.items() if "reduce_lanes" in f}
-    assert len(lanes) == 2 * 2 * len(mb.REDUCE_LANES)
+    assert sorted((f.split("reduce_lanesI")[1][0],
+                   int(f.split("Li")[1].split("E")[0]),
+                   f.split("ELb")[1][0]) for f in lanes) == [
+        ("f", 8, "0"), ("i", 8, "0"), ("i", 32, "1")]
     for f, c in lanes.items():
         is_f32 = "reduce_lanesIfLi" in f
         k = int(f.split("Li")[1].split("E")[0])

@@ -279,13 +279,23 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     assert dict(mb.LAUNCHES) == before
 
 
-def test_gather_ways_and_their_codes():
-    """Each way names a code of the C entry and the layout its kernel
-    reads: __ldg from the slot-major copy, shared memory staged from the
-    field-major table; way 0 (the field-major __ldg route K1 does not
-    read) is not one of them."""
+def test_gather_ways_and_their_codes(monkeypatch):
+    """Each way's code of the C entry (its index, as the parent's) and the
+    layout its kernel reads: __ldg the slot-major (W, 8) copy, made in the
+    call; shared memory the (8, W) table as it is."""
     assert v5.GATHER_WAYS == ("ldg", "smem")
-    assert v5.GATHER_ROUTES == {"ldg": (2, True), "smem": (1, False)}
+    seen = []
+    monkeypatch.setattr(v5, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(v5, "_launch", lambda label, out, *args, **kw:
+                        seen.append((label, args[1], args[7])))
+    s = _salt()
+    tbl = torch.from_numpy(v5.gather_inputs("seeded", 4))
+    for way in v5.GATHER_WAYS:
+        v5.gather(s, tbl, 1024, 4, way, 3)
+    (l0, c0, t0), (l1, c1, t1) = seen
+    assert (l0, c0, l1, c1) == ("M6 paygather_c4 ldg 1024", 0,
+                                "M6 paygather_c4 smem 1024", 1)
+    assert torch.equal(t0, tbl.T.contiguous()) and t1 is tbl
 
 
 @pytest.mark.parametrize("chunks", v5.CHUNKS)
@@ -315,8 +325,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
            lambda: v5.gather(s, tbl, 1024, 1),
            lambda: v5.gather(s, tbl, 1024, 4, "tex"),
            lambda: v5.gather(s, tbl, 1024, 4, "ldg_fields"),
-           lambda: v5.gather(s, tbl, 1024, 4, "smem", routes={"ldg": (0,
-                                                                     False)}),
            lambda: v5.gather(s, tbl, 256, 4),
            lambda: v5.gather(s, tbl.t(), 1024, 4)]
     for f in bad:
@@ -354,6 +362,57 @@ def test_recounted_gather_bound():
     assert ms == pytest.approx(2.0 ** 31 / (128 * 132 * 1.98e9) * 1e3)
     assert ms == pytest.approx(0.0642, abs=1e-4)
     assert nbytes / 3.35e12 * 1e3 < ms / 10
+
+
+def test_turns_side_builds_rewrite_one_line_each(tmp_path, monkeypatch):
+    """Each side build of the M3/M6 turns probe rewrites lines that occur
+    once in this tree's sources, so a source edit cannot leave a side
+    build equal to the change unnoticed; a line that is not there once is
+    refused."""
+    from raytracers_tpu_torch.probes import m3m6_turns as tm
+    from raytracers_tpu_torch.probes import turns
+    monkeypatch.setattr(turns, "OUT_DIR", tmp_path)
+    paths = tm.side_sources()
+    assert set(paths) == set(tm.SIDES)
+    for name, (kernel, edits) in tm.SIDES.items():
+        text = paths[name][kernel].read_text()
+        for old, new in edits:
+            assert new in text and (old == new or old not in text), name
+    assert "kSlotStride = 1;" in paths["stride1_alt"]["microbench_v5"] \
+        .read_text()
+    with pytest.raises(ValueError):
+        turns.rewrite("microbench_v5", "x", [("__ldg(", "ldg(")])
+    with pytest.raises(ValueError):
+        turns.rewrite("microbench_v5", "x", [("no such line", "")])
+
+
+@pytest.mark.parametrize("stride,waves,waves_alt,lines", [
+    (1, 8, 4, 8.75), (2, 16, 8, 16.5), (4, 32, 16, 32.0), (37, 8, 4, 25.75)])
+def test_ldg_load_model(stride, waves, waves_alt, lines):
+    """The ldg way's loads at W = 128: lanes in one of L1's 8 16-byte bank
+    groups at different addresses take a wavefront each; with every lower
+    half first (the kernel, K1's order) a load meets 4 groups, alternated
+    by lane bit 2 all 8; 4 wavefronts a load are the bytes bound."""
+    from raytracers_tpu_torch.probes import m3m6_turns as tm
+    k1, alt = tm.load_model(stride, 128, False), tm.load_model(stride, 128,
+                                                               True)
+    assert (k1["wavefronts"], alt["wavefronts"]) == (waves, waves_alt)
+    assert k1["lines"] == alt["lines"] == lines
+    bound = mb.pipe_bound(v5.gather_pipes(1 << 20, 64), 0)[0]
+    assert alt["wavefront_ms"] == pytest.approx(bound * waves_alt / 4)
+    assert tm.load_model(37, 512, False)["lines"] == 32.0
+
+
+@pytest.mark.parametrize("chunks", v5.CHUNKS)
+def test_strided_plain_at_the_probe_stride_is_gather_plain(chunks):
+    from raytracers_tpu_torch.probes import m3m6_turns as tm
+    s = _salt()
+    tbl = torch.from_numpy(v5.gather_inputs("seeded", chunks))
+    assert torch.equal(tm.strided_plain(tbl, 1024, chunks, v5.SLOT_STRIDE)
+                       .view(torch.int32),
+                       v5.gather_plain(s, tbl, 1024, chunks).view(torch.int32))
+    assert not torch.equal(tm.strided_plain(tbl, 1024, chunks, 1),
+                           v5.gather_plain(s, tbl, 1024, chunks))
 
 
 def test_width_ratios():
@@ -440,6 +499,6 @@ def test_card_gather_sass(cuda):
     assert not [f for f, c in gathers.items() if c.get("MUFU")]
     for f, c in gathers.items():
         way = int(f.split("ELi")[1][0])
-        if way == 2:
+        if way == 0:
             assert c.get("LDG.128", 0) >= 2 and c["LDG.128"] % 2 == 0
             assert c["LDG"] == c["LDG.128"]
