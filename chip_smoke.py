@@ -129,18 +129,20 @@ a failed phase exits non-zero before the final line:
    products as an FP32 loop, TF32 and 3xTF32 wgmma (with ``torch.bmm`` at
    each route's precision as the library call); M3's 128-key minimum,
    serial, shuffled and ``__reduce_min_sync`` (with ``torch.amin``); M4's
-   cluster visit, a thread or a warp per ray at 4k, 64k and 1M rays, on
+   cluster visit, a thread or k lanes a ray at 4k, 64k and 1M rays, on
    the TPU probe's spheres and a seeded set.  Every variant is held
    against its plain version on the card (bit-equal, but M1's FMA and M2's
    TF32 routes within their stated bounds).  Phase 1 also times M1's
    square root, division and 1/x, and prints them beside the weights the
    bounds charge (``SQRT_OPS``, ``DIV_OPS``).  Then
    ``probes.microbench_v5.run`` and ``probes.microbench_mxuquad.run``:
-   M5's visit at 32, 64 and 128 rows, payload read each visit (``mxu``) or deferred (``defer``), a thread or a
-   warp per ray, at 8,192, 65,536 and 1,048,576 rays; M6's deferred 8-field
-   gather, 4 and 1 chunks, through ``__ldg`` or shared memory, at 8,192 and
-   1,048,576 lanes (with ``tbl[:, slot]`` indexing timed beside it); M7's
-   five variants, the FP32 quadratic (``vpu``) or bf16 ``wgmma``
+   M5's visit at 32, 64 and 128 rows, payload read each visit (``mxu``) or
+   deferred (``defer``), a thread or k lanes a ray, at 8,192, 65,536 and
+   1,048,576 rays (M4 and M5 bounded by operations and by the fewest L1
+   wavefronts any route's loads need, with the device's own time under a
+   millisecond); M6's deferred 8-field gather, 4 and 1 chunks, through
+   ``__ldg`` or shared memory, at 8,192 and 1,048,576 lanes (with
+   ``tbl[:, slot]`` indexing timed beside it); M7's five variants, the FP32 quadratic (``vpu``) or bf16 ``wgmma``
    (``mxuquad``, splits 1 and 3), at 8,192 and 1,048,576 rays (with
    ``torch.matmul`` of the bf16 operands), on the TPU probes' inputs and a
    seeded set.  M5, M6 and M7's ``vpu`` are bit-equal to their plain
@@ -2226,10 +2228,11 @@ def phase_probes() -> dict:
     on the same inputs (bit-equal; M1's FMA within its steps' ulps, M2's
     TF32 routes within their rounding bound, M7's mxuquad product within
     its bound and its visit bit-equal given that product) and given its
-    bound (M1, M3 and M6 by the pipe that limits them, the old bound
-    beside); M3's and M6's rows under 0.05 ms also carry the device's own
-    time.  M5 and M7 charge a root and 1/a at the M1 weights measured
-    here."""
+    bound (M1, M3 and M6 by the pipe that limits them, M4 and M5 by their
+    operations or the fewest L1 wavefronts their loads need, the old bound
+    beside); M3's and M6's rows under 0.05 ms, M4's and M5's under 1 ms
+    also carry the device's own time.  M4, M5 and M7 charge a root and 1/a at the M1
+    weights measured here."""
     from raytracers_tpu_torch.probes import microbench as mb
     from raytracers_tpu_torch.probes import microbench_mxuquad as mq
     from raytracers_tpu_torch.probes import microbench_v5 as v5

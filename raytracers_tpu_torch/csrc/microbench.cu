@@ -32,8 +32,9 @@
 //                          winner's 8 payload fields read by index (the
 //                          one-hot MXU dot of the TPU is an indexed load
 //                          here); one thread per ray sweeping 128 rows (K1's
-//                          design) or a warp per ray, 4 rows a lane, the key
-//                          through __reduce_min_sync.
+//                          design) or k lanes a ray, 128 / k rows a lane,
+//                          the key folded within the group once a visit,
+//                          one template (visit_lanes) for both.
 //
 // Every probe reads its salt and inputs from device memory and writes its
 // result, so nvcc cannot fold a loop.  The sources build with -fmad=false;
@@ -58,6 +59,9 @@
 // 128 - k + k log2 k minima a column and log2(k) k / 32 shuffles, so a few
 // lanes a column keep it on the minima and off the shuffle unit (32 a
 // cycle), while 4096 columns x k lanes are enough warps to fill the SMs.
+// M4's lanes way at 32 lanes a ray: its two 16-byte loads of a slot-major
+// row take 16 L1 wavefronts for 32 tests (probes/microbench.py
+// visit_pipes), which bound it above its FP32 operations.
 //
 // SASS (cuobjdump -sass of the build, CUDA 12.8; probes/microbench.py
 // sass_counts, counts of every kernel in docs/MICROBENCH_H100.json): M1's
@@ -908,16 +912,40 @@ __device__ __forceinline__ Ray fake_ray(float lid, float x) {
   return r;
 }
 
-// The key of sphere row `row` (its sphT row + s) for ray r.
-__device__ __forceinline__ int row_key(const float* __restrict__ sphT,
+// k of the lanes way: the card's sweep of k in {4, 8, 16, 32} at the TPU
+// probe's 4,096 rays (probes/m4m5_turns.py, docs/M4M5_TURNS_H100.json),
+// where 4,096 x k lanes are 1-31 warps an SM and fewer than 32 lanes a ray
+// leave the card too few warps to hide a row test's latency; at 1M rays
+// k = 4 is 16% faster.  probes/microbench.py VISIT_LANES holds the same.
+constexpr int kVisitLanes = 32;
+// Row `row` of K1's slot-major (128, 8) table t plus s: its two 16-byte
+// halves through __ldg and the 8 adds here; or (kShifted) the block's
+// shifted copy in shared memory, read as it is.
+template <bool kShifted>
+__device__ __forceinline__ void table_row(const float* __restrict__ t,
+                                          int row, float s, float (&l)[8]) {
+  float v[8];
+  const float4* p = reinterpret_cast<const float4*>(t + 8 * row);
+  float4 lo, hi;
+  if constexpr (kShifted) {
+    lo = p[0];
+    hi = p[1];
+  } else {
+    lo = __ldg(p);
+    hi = __ldg(p + 1);
+  }
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+#pragma unroll
+  for (int f = 0; f < 8; ++f) l[f] = kShifted ? v[f] : __fadd_rn(v[f], s);
+}
+
+// The key of sphere row `row` (its table row + s) for ray r.
+template <bool kShifted>
+__device__ __forceinline__ int row_key(const float* __restrict__ tbl,
                                        int row, float s, const Ray& r) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(sphT + 8 * row));
-  const float4 hi =
-      __ldg(reinterpret_cast<const float4*>(sphT + 8 * row + 4));
-  const float l[8] = {__fadd_rn(lo.x, s), __fadd_rn(lo.y, s),
-                      __fadd_rn(lo.z, s), __fadd_rn(lo.w, s),
-                      __fadd_rn(hi.x, s), __fadd_rn(hi.y, s),
-                      __fadd_rn(hi.z, s), __fadd_rn(hi.w, s)};
+  float l[8];
+  table_row<kShifted>(tbl, row, s, l);
   float q = __fmul_rn(l[0], r.gq[0]), ll = __fmul_rn(l[0], r.gl[0]);
 #pragma unroll
   for (int k = 1; k < 8; ++k) {
@@ -935,67 +963,78 @@ __device__ __forceinline__ int row_key(const float* __restrict__ sphT,
   return (__float_as_int(tv) & ~0x7F) | row;
 }
 
-// (a) one thread per ray, 128 rows in order
+// k lanes a ray (a thread a ray at k = 1, K1's phase-0 design): lane i of
+// a ray's group tests rows i + k*e, e < 128 / k; the group folds its keys
+// once a visit (M3's butterfly within the group, or at k = 32 one
+// __reduce_min_sync), every lane makes the same strict-less update of
+// krun, and on an improvement lane i reads the winner's fields i + k*m
+// (one each at k >= 8, all 8 at k = 1).  row_key's two 16-byte loads of a
+// slot-major row fall in an even and an odd bank group of L1, so a warp's
+// k distinct rows a load take 2 ceil(k / 4) wavefronts for 32 tests (16 at
+// the parent's warp a ray, k = 32; probes/microbench.py visit_load_model).
+// The lanes way's 256 threads form (table + s) in shared memory once a
+// visit, a float4 each, double-buffered, so that one barrier a visit
+// orders the writes after the last visit's reads: the TPU kernel forms
+// lhsT once a visit for the tile (tools/microbench_tpu.py:196), and 8 adds
+// a lane and row in its place took 0.358 ms against 0.327 at 4,096 rays
+// (the sweep, docs/M4M5_TURNS_H100.json).  The grid is exact (n is a
+// multiple of 256), so every warp and block runs whole.
+template <int kLanes>
 __global__ void __launch_bounds__(256)
-visit_thread(const float* __restrict__ salt, const float* __restrict__ sphT,
-             const float* __restrict__ sph8, float* __restrict__ out,
-             int iters, int n) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
+visit_lanes(const float* __restrict__ salt, const float* __restrict__ sphT,
+            const float* __restrict__ sph8, float* __restrict__ out,
+            int iters) {
+  static_assert(32 % kLanes == 0, "k divides a warp");
+  constexpr int kE = kRows / kLanes;                  // rows a lane
+  constexpr int kF = kLanes < 8 ? 8 / kLanes : 1;     // fields a lane
+  constexpr bool kStage = kLanes > 1;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = t / kLanes, i = t % kLanes;
   const int j = g % kT;
   const float x = salt[0];
   const Ray r = fake_ray((float)j, x);
   int krun = 0x7F000000;
-  float pay[8];
+  float pay[kF];
 #pragma unroll
-  for (int f = 0; f < 8; ++f) pay[f] = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    const float s = __fmul_rn(x, (float)i);
-    int kmin = 0x7fffffff;
-#pragma unroll 4
-    for (int row = 0; row < kRows; ++row)
-      kmin = min(kmin, row_key(sphT, row, s, r));
-    if (kmin < krun) {
-      krun = kmin;
-      const int w = kmin & 0x7F;
+  for (int m = 0; m < kF; ++m) pay[m] = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    const float s = __fmul_rn(x, (float)it);
+    const float* tbl = sphT;
+    if constexpr (kStage) {
+      __shared__ float4 shifted[2][2 * kRows];
+      float4 v = __ldg(reinterpret_cast<const float4*>(sphT) + threadIdx.x);
+      v.x = __fadd_rn(v.x, s);
+      v.y = __fadd_rn(v.y, s);
+      v.z = __fadd_rn(v.z, s);
+      v.w = __fadd_rn(v.w, s);
+      shifted[it & 1][threadIdx.x] = v;
+      __syncthreads();
+      tbl = reinterpret_cast<const float*>(shifted[it & 1]);
+    }
+    int best[1] = {0x7fffffff};
+#pragma unroll (kE <= 16 ? kE : 4)
+    for (int e = 0; e < kE; ++e)
+      best[0] = min(best[0], row_key<kStage>(tbl, i + kLanes * e, s, r));
+    if constexpr (kLanes == 32)
+      best[0] = __reduce_min_sync(0xffffffffu, best[0]);
+    else
+      butterfly<kLanes / 2>(best);
+    if (best[0] < krun) {
+      krun = best[0];
+      if (i < 8) {
+        const int w = krun & 0x7F;
 #pragma unroll
-      for (int f = 0; f < 8; ++f) pay[f] = __ldg(sph8 + f * kRows + w);
+        for (int m = 0; m < kF; ++m)
+          pay[m] = __ldg(sph8 + (i + kLanes * m) * kRows + w);
+      }
     }
   }
-  float* o = out + (size_t)(g / kT) * 8 * kT + j;
+  if (i < 8) {
+    float* o = out + (size_t)(g / kT) * 8 * kT + j;
 #pragma unroll
-  for (int f = 0; f < 8; ++f) o[f * kT] = __fadd_rn(pay[f], (float)krun);
-}
-
-// (b) a warp per ray: lane l tests rows l + 32e, e < 4; the key's minimum
-// through __reduce_min_sync; lane f < 8 reads the winner's field f
-__global__ void __launch_bounds__(256)
-visit_warp(const float* __restrict__ salt, const float* __restrict__ sphT,
-           const float* __restrict__ sph8, float* __restrict__ out, int iters,
-           int n) {
-  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (g >= n) return;
-  const int j = g % kT;
-  const float x = salt[0];
-  const Ray r = fake_ray((float)j, x);
-  int krun = 0x7F000000;
-  float pay = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    const float s = __fmul_rn(x, (float)i);
-    int kmin = 0x7fffffff;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      kmin = min(kmin, row_key(sphT, lane + 32 * e, s, r));
-    kmin = __reduce_min_sync(0xffffffffu, kmin);
-    if (kmin < krun) {
-      krun = kmin;
-      if (lane < 8) pay = __ldg(sph8 + lane * kRows + (kmin & 0x7F));
-    }
+    for (int m = 0; m < kF; ++m)
+      o[(i + kLanes * m) * kT] = __fadd_rn(pay[m], (float)krun);
   }
-  if (lane < 8)
-    out[(size_t)(g / kT) * 8 * kT + lane * kT + j] =
-        __fadd_rn(pay, (float)krun);
 }
 
 }  // namespace
@@ -1006,7 +1045,8 @@ visit_warp(const float* __restrict__ salt, const float* __restrict__ sphT,
 // (0 pair, 1 pairT, 2 payload), size = grid; probe 2 (M3): variant = way
 // (0 serial, 1 shuffle, 2 __reduce_min_sync), arg = dtype (0 f32, 1 i32),
 // size = grid; probe 3
-// (M4): variant = way (0 thread, 1 warp), size = rays.
+// (M4): variant = lanes a ray (1 the thread way, the build's kVisitLanes
+// the lanes way; any other is refused), size = rays, in0 = sphT.
 extern "C" int rt_microbench_launch(int probe, int variant, int arg,
                                     int iters, int size, const float* salt,
                                     const void* in0, const void* in1,
@@ -1067,12 +1107,12 @@ extern "C" int rt_microbench_launch(int probe, int variant, int arg,
       const float* sph8 = static_cast<const float*>(in1);
       float* o = static_cast<float*>(out);
       if (size % kT != 0) return (int)cudaErrorInvalidValue;
-      if (variant == 0)
-        visit_thread<<<(size + 255) / 256, 256, 0, st>>>(salt, sphT, sph8, o,
-                                                        iters, size);
-      else if (variant == 1)
-        visit_warp<<<size / 8, 256, 0, st>>>(salt, sphT, sph8, o, iters,
-                                             size);
+      if (variant == 1)
+        visit_lanes<1><<<size / 256, 256, 0, st>>>(salt, sphT, sph8, o,
+                                                   iters);
+      else if (variant == kVisitLanes)
+        visit_lanes<kVisitLanes><<<size / 256 * kVisitLanes, 256, 0, st>>>(
+            salt, sphT, sph8, o, iters);
       else
         return (int)cudaErrorInvalidValue;
       break;

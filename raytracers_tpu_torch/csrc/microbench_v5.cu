@@ -16,10 +16,13 @@
 //                                    visit's index is kept (cidx), for a
 //                                    bounce to read its payload once (M6).
 //                           One thread per ray, its rows in order (K1's
-//                           design), or a warp per ray, rows lane + 32e,
-//                           the key's minimum by __reduce_min_sync and
-//                           lane f < 8 reading field f.  The table (at most
-//                           4 KB) is read through __ldg and stays in L1.
+//                           phase-0 design), or k lanes a ray (the lanes
+//                           way), lane i on rows i + k*e, the key folded
+//                           within the group once a visit and lane f < 8
+//                           reading field f: one template, visit_lanes,
+//                           for both.  The table (at most 4 KB) is read in
+//                           K1's slot-major layout through __ldg and stays
+//                           in L1.
 //   M6 gather_kernel (:135) the deferred read: for 64 steps i each lane
 //                           sums the 8 fields of slot (lane*37 + i) mod W
 //                           of an (8, W) table, W = chunks * 128, in field
@@ -37,9 +40,15 @@
 // microbench_v5.py): the arithmetic is written as IEEE intrinsics in the
 // order the plain version evaluates it (csrc/probe_visit.cuh), -fmad=false.
 //
-// What bounds each on this card: both are issue-bound by design.  M5 moves
-// a few KB of table and writes 32 bytes a ray; a (ray, row) test is 32
-// lane operations and a square root.  M6 reads at most 16 KB of table and
+// What bounds each on this card.  M5 moves a few KB of table and writes 32
+// bytes a ray; a (ray, row) test is 32 lane operations and a square root,
+// about 10 issue cycles for 32 tests, and its loads take 2 ceil(k / 4) L1
+// wavefronts for 32 tests at k lanes a ray in the slot-major layout, 4 in
+// the field-major one (16 at a warp a ray, which held that route to within
+// 5% of one wavefront a cycle an SM).  At k = 8 the FP32 pipe bounds it;
+// at 8,192 rays 8,192 x k lanes are 16 warps an SM, whose latency keeps it
+// at 59-70% of that bound (NVIDIA H100 80GB HBM3, 700 W).
+// M6 reads at most 16 KB of table and
 // writes 4 bytes a lane; a lane-step brings its slot's 32 bytes through L1
 // or shared memory, 128 bytes a cycle an SM, which bounds it (0.0642 ms at
 // 1M lanes, 1980 MHz); its 9 adds and the slot's increment and mask are
@@ -67,111 +76,154 @@ template <int kRows, bool kDefer>
 constexpr int kKeyMask = kDefer ? ~511 : ~(kRows - 1);
 
 // ------------------------------------------------------------------ M5
-// (a) one thread per ray, its rows in order
-template <int kRows, bool kDefer>
+// k lanes a ray (a thread a ray at k = 1): lane i of a ray's group tests
+// rows i + k*e, e < rows / k; the group folds its keys once a visit
+// (group_min), every lane makes the same strict-less update of krun, and on
+// an improvement the group's lanes read the winner's 8 fields, lane i the
+// fields i + k*m (one each at k >= 8, all 8 at k = 1).
+//
+// Why k lanes: L1 serves a warp's load in wavefronts, a 16-byte unit from
+// each of 8 bank groups a wavefront, and lanes in one group at different
+// addresses take a wavefront each (probes/m3m6_turns.py load_model).
+// row_bc reads a row's 16 bytes at byte 0 (an even group) and 4 at byte 28
+// (an odd one), so a warp's 32 distinct rows at k = 32 (the parent's warp
+// a ray) take 16 wavefronts for 32 tests, about 1.6 times their
+// arithmetic; k lanes a ray read k distinct rows a load, 2 ceil(k / 4)
+// wavefronts (probes/microbench.py visit_load_model), while 8,192 rays x k
+// lanes fill the card where a thread a ray (256 warps) does not.
+//
+// k and the table's layout of the lanes way at 32, 64 and 128 rows: the
+// card's sweep of k in {4, 8, 16, 32} in both layouts at the TPU probe's
+// 8,192 rays (probes/m4m5_turns.py, docs/M4M5_TURNS_H100.json), where the
+// field-major (8, rows) copy the caller passes (a 4-byte load a field, 4
+// wavefronts for 32 tests at any k) beat K1's slot-major (rows, 8) layout
+// by more than 5% at 32 and 64 rows; probes/microbench_v5.py VISIT_LANES
+// and VISIT_LAYOUT hold the same.  The thread way reads K1's layout.
+constexpr int kVisitLanes[3] = {8, 32, 8};
+constexpr bool kFieldMajor[3] = {true, true, false};
+
+template <int kRows>
+constexpr int kWidthAt = kRows == 32 ? 0 : kRows == 64 ? 1 : 2;
+template <int kRows>
+constexpr int kLanesAt = kVisitLanes[kWidthAt<kRows>];
+
+// row_bc of the table t, slot-major or (kField) field-major
+template <int kRows, bool kField>
+__device__ __forceinline__ void table_bc(const float* __restrict__ t,
+                                         int row, float shift, const Ray& r,
+                                         float& b, float& c) {
+  if constexpr (kField) {
+    const float ocx = __fsub_rn(r.ox, __fadd_rn(__ldg(t + row), shift));
+    const float ocy = __fsub_rn(r.oy, __ldg(t + kRows + row));
+    const float ocz = __fsub_rn(r.oz, __ldg(t + 2 * kRows + row));
+    b = __fadd_rn(__fadd_rn(__fmul_rn(ocx, r.dx), __fmul_rn(ocy, r.dy)),
+                  __fmul_rn(ocz, r.dz));
+    c = __fsub_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(ocx, ocx), __fmul_rn(ocy, ocy)),
+                  __fmul_rn(ocz, ocz)),
+        __ldg(t + 7 * kRows + row));
+  } else {
+    row_bc(t, row, shift, r, b, c);
+  }
+}
+
+// The minimum of a ray's k lanes' keys, in each of them: log2 k rounds of
+// __shfl_xor_sync within the group (template recursions, so that nvcc
+// unrolls them), or at k = 32 one __reduce_min_sync.
+template <int kO>
+__device__ __forceinline__ int butterfly(int v) {
+  if constexpr (kO >= 1)
+    return butterfly<kO / 2>(min(v, __shfl_xor_sync(0xffffffffu, v, kO)));
+  else
+    return v;
+}
+
+template <int kLanes>
+__device__ __forceinline__ int group_min(int v) {
+  if constexpr (kLanes == 32)
+    return __reduce_min_sync(0xffffffffu, v);
+  else
+    return butterfly<kLanes / 2>(v);
+}
+
+// The grid is exact (n is a multiple of 512), so every warp runs whole.
+template <int kRows, bool kDefer, int kLanes>
 __global__ void __launch_bounds__(256)
-visit_thread(const float* __restrict__ salt, const float* __restrict__ sphT,
-             const float* __restrict__ sph8, float* __restrict__ out,
-             int iters, int n) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
+visit_lanes(const float* __restrict__ salt, const float* __restrict__ sphT,
+            const float* __restrict__ sph8, float* __restrict__ out,
+            int iters) {
+  static_assert(32 % kLanes == 0 && kLanes <= kRows, "k divides a warp");
+  constexpr int kE = kRows / kLanes;                  // rows a lane
+  constexpr int kF = kLanes < 8 ? 8 / kLanes : 1;     // fields a lane
+  constexpr bool kField = kLanes > 1 && kFieldMajor[kWidthAt<kRows>];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = t / kLanes, i = t % kLanes;
   const int j = g % kT;
   const float x = salt[0];
   const Ray r = fake_ray((float)j, x);
   int krun = kMissKey, cidx = 0;
-  float pay[8];
+  float pay[kF];
 #pragma unroll
-  for (int f = 0; f < 8; ++f) pay[f] = 0.0f;
+  for (int m = 0; m < kF; ++m) pay[m] = 0.0f;
   for (int c = 0; c < iters; ++c) {
     const float s = __fmul_rn(x, (float)c);
     int kmin = 0x7fffffff;
-#pragma unroll 4
-    for (int row = 0; row < kRows; ++row) {
+#pragma unroll (kE <= 16 ? kE : 4)
+    for (int e = 0; e < kE; ++e) {
+      const int row = i + kLanes * e;
       float b, cq;
-      row_bc(sphT, row, s, r, b, cq);
+      table_bc<kRows, kField>(sphT, row, s, r, b, cq);
       kmin = min(kmin, quad_key(b, cq, r, kKeyMask<kRows, kDefer>, row));
     }
+    kmin = group_min<kLanes>(kmin);
     if (kmin < krun) {
       if constexpr (kDefer) {
         cidx = c;
-      } else {
+      } else if (i < 8) {
         const int w = kmin & (kRows - 1);
 #pragma unroll
-        for (int f = 0; f < 8; ++f) pay[f] = __ldg(sph8 + f * kRows + w);
+        for (int m = 0; m < kF; ++m)
+          pay[m] = __ldg(sph8 + (i + kLanes * m) * kRows + w);
       }
       krun = kmin;
     }
   }
-  float* o = out + (size_t)(g / kT) * 8 * kT + j;
+  if (i < 8) {
+    float* o = out + (size_t)(g / kT) * 8 * kT + j;
 #pragma unroll
-  for (int f = 0; f < 8; ++f)
-    o[f * kT] = __fadd_rn(__fadd_rn(pay[f], (float)krun), (float)cidx);
-}
-
-// (b) a warp per ray: lane l tests rows l + 32e, e < rows / 32
-template <int kRows, bool kDefer>
-__global__ void __launch_bounds__(256)
-visit_warp(const float* __restrict__ salt, const float* __restrict__ sphT,
-           const float* __restrict__ sph8, float* __restrict__ out, int iters,
-           int n) {
-  constexpr int kE = kRows / 32;
-  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (g >= n) return;
-  const int j = g % kT;
-  const float x = salt[0];
-  const Ray r = fake_ray((float)j, x);
-  int krun = kMissKey, cidx = 0;
-  float pay = 0.0f;
-  for (int c = 0; c < iters; ++c) {
-    const float s = __fmul_rn(x, (float)c);
-    int kmin = 0x7fffffff;
-#pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const int row = lane + 32 * e;
-      float b, cq;
-      row_bc(sphT, row, s, r, b, cq);
-      kmin = min(kmin, quad_key(b, cq, r, kKeyMask<kRows, kDefer>, row));
-    }
-    kmin = __reduce_min_sync(0xffffffffu, kmin);
-    if (kmin < krun) {
-      if constexpr (kDefer)
-        cidx = c;
-      else if (lane < 8)
-        pay = __ldg(sph8 + lane * kRows + (kmin & (kRows - 1)));
-      krun = kmin;
-    }
+    for (int m = 0; m < kF; ++m)
+      o[(i + kLanes * m) * kT] =
+          __fadd_rn(__fadd_rn(pay[m], (float)krun), (float)cidx);
   }
-  if (lane < 8)
-    out[(size_t)(g / kT) * 8 * kT + lane * kT + j] =
-        __fadd_rn(__fadd_rn(pay, (float)krun), (float)cidx);
 }
 
+// lanes 1 (the thread way) or the build's k at this width (the lanes way)
 template <int kRows, bool kDefer>
-int launch_visit_rows(int way, const float* salt, const float* sphT,
+int launch_visit_rows(int lanes, const float* salt, const float* sphT,
                       const float* sph8, float* out, int iters, int n,
                       cudaStream_t st) {
-  if (way == 0)
-    visit_thread<kRows, kDefer><<<(n + 255) / 256, 256, 0, st>>>(
-        salt, sphT, sph8, out, iters, n);
-  else if (way == 1)
-    visit_warp<kRows, kDefer><<<(n + 7) / 8, 256, 0, st>>>(salt, sphT, sph8,
-                                                          out, iters, n);
+  constexpr int k = kLanesAt<kRows>;
+  if (lanes == 1)
+    visit_lanes<kRows, kDefer, 1><<<n / 256, 256, 0, st>>>(salt, sphT, sph8,
+                                                           out, iters);
+  else if (lanes == k)
+    visit_lanes<kRows, kDefer, k><<<n / 256 * k, 256, 0, st>>>(
+        salt, sphT, sph8, out, iters);
   else
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 template <bool kDefer>
-int launch_visit(int way, int rows, const float* salt, const float* sphT,
+int launch_visit(int lanes, int rows, const float* salt, const float* sphT,
                  const float* sph8, float* out, int iters, int n,
                  cudaStream_t st) {
   switch (rows) {
-    case 32: return launch_visit_rows<32, kDefer>(way, salt, sphT, sph8, out,
-                                                  iters, n, st);
-    case 64: return launch_visit_rows<64, kDefer>(way, salt, sphT, sph8, out,
-                                                  iters, n, st);
-    case 128: return launch_visit_rows<128, kDefer>(way, salt, sphT, sph8,
+    case 32: return launch_visit_rows<32, kDefer>(lanes, salt, sphT, sph8,
+                                                  out, iters, n, st);
+    case 64: return launch_visit_rows<64, kDefer>(lanes, salt, sphT, sph8,
+                                                  out, iters, n, st);
+    case 128: return launch_visit_rows<128, kDefer>(lanes, salt, sphT, sph8,
                                                     out, iters, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -274,9 +326,12 @@ int launch_gather_way(int way, const float* tbl, float* out, int iters,
 
 }  // namespace
 
-// One entry point for both probes.  probe 0 (M5): way (0 thread, 1 warp),
-// width = rows (32, 64, 128), payload (0 mxu, 1 defer), size = rays, in0 =
-// sphT, in1 = sph8; probe 1 (M6): way (0 __ldg slot-major, 1 shared
+// One entry point for both probes.  probe 0 (M5): way = lanes a ray (1 the
+// thread way, the build's k at the width the lanes way; any other is
+// refused), width = rows (32, 64, 128), payload (0 mxu, 1 defer), size =
+// rays, in0 = sphT (for the lanes way its field-major copy where the
+// build's kFieldMajor says so), in1 = sph8;
+// probe 1 (M6): way (0 __ldg slot-major, 1 shared
 // memory), width = chunks (1 or 4), size = lanes, in0 = the table, (W, 8)
 // for way 0 and (8, W) for way 1.  size is a multiple of 512.  The
 // salt of M6 is not read.

@@ -96,10 +96,11 @@ def _turn(dev, name, log):
                                   if name == "parent" else v5.run_m6(dev, log))
 
 
-def rows_of(turns, log=print) -> list:
+def rows_of(turns, log=print, tag="m3m6") -> list:
     """A row an entry name (M3: a route; M6: a route, width, lane count and
     input): each build's times by turn, their medians, shares and the
-    parent's median over the change's where the parent has the route."""
+    parent's median over the change's where the parent has the route;
+    logged under ``[tag]``."""
     rows = {}
     for t in turns:
         for e in t["entries"]:
@@ -118,9 +119,10 @@ def rows_of(turns, log=print) -> list:
         med = row["median_ms"]
         row["share"] = {n: row["bound_ms"] / m for n, m in med.items()}
         row["parent_over_change"] = (med["parent"] / med["change"]
-                                     if "parent" in med else None)
+                                     if {"parent", "change"} <= med.keys()
+                                     else None)
         dev = row["median_device_ms"]
-        log(f"[m3m6] {row['name']}: " + "; ".join(
+        log(f"[{tag}] {row['name']}: " + "; ".join(
             f"{n} {m:.4f} ms ({row['share'][n]:.3f} of {row['bound_ms']:.4f}"
             f" on {row['bound_row']}; old {row['old_bound_ms']:.4f})"
             + (f", device {dev[n]:.4f}" if n in dev else "")

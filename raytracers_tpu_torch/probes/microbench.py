@@ -17,7 +17,8 @@ same four questions of the H100, with hand-written CUDA
   butterfly over the 8, or (int32 keys) by a warp a column and
   ``__reduce_min_sync``;
 * M4 (``visit_kernel``): one 128-sphere cluster visit, one thread per ray
-  (K1's design) against a warp per ray, at 4k, 64k and 1M rays.
+  (K1's design) against k lanes a ray (``VISIT_LANES``), at 4k, 64k and 1M
+  rays.
 
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 ``LAUNCHES`` under the variant's label) and takes the plain version for CPU
@@ -77,7 +78,12 @@ REDUCE_WAYS = ("serial", "shuffle", "redux")
 # lanes a column of each way (csrc/microbench.cu kShuffleLanes, kReduxLanes)
 REDUCE_LANES = {"serial": 1, "shuffle": 8, "redux": 32}
 REDUCE_ITERS, REDUCE_GRID = 512, 16
-VISIT_WAYS = ("thread", "warp")
+VISIT_WAYS = ("thread", "lanes")
+# k of the lanes way (csrc/microbench.cu kVisitLanes): the card's sweep at
+# 4,096 rays (probes/m4m5_turns.py, docs/M4M5_TURNS_H100.json)
+VISIT_LANES = 32
+# the k a lanes way may be built with: a power of two that divides a warp
+LANE_COUNTS = (2, 4, 8, 16, 32)
 VISIT_ITERS = 256
 VISIT_RAYS = (16 * T, 256 * 256, 1 << 20)   # the TPU's grid, the soup's 256^2, ~1000^2
 VISIT_INPUTS = ("tpu", "seeded")
@@ -342,7 +348,8 @@ def visit(salt, sphT, sph8, n_rays, iters=VISIT_ITERS, way="thread"):
     ``n_rays`` fake rays (lane j % 256 of tools/microbench_tpu.py:175-191),
     the table shifted by salt * i at visit i; out (n_rays / 256, 8, 256) =
     the winner's 8 fields of ``sph8`` (8, 128) + float(krun).  ``way``: one
-    thread per ray, or a warp per ray."""
+    thread per ray, or ``VISIT_LANES`` lanes a ray (the C entry's code is
+    the lanes a ray)."""
     _expect(salt, (1,), F32, "salt")
     _expect(sphT, (ROWS, 8), F32, "M4 sphT")
     _expect(sph8, (8, ROWS), F32, "M4 sph8")
@@ -351,8 +358,9 @@ def visit(salt, sphT, sph8, n_rays, iters=VISIT_ITERS, way="thread"):
     if not _on_card(salt, sphT, sph8):
         return visit_plain(salt, sphT, sph8, n_rays, iters)
     out = torch.empty((n_rays // T, 8, T), dtype=F32, device=salt.device)
-    return _launch(visit_label(way, n_rays), out, 3, VISIT_WAYS.index(way),
-                   0, iters, n_rays, salt, sphT, sph8, out)
+    return _launch(visit_label(way, n_rays), out, 3,
+                   1 if way == "thread" else VISIT_LANES, 0, iters, n_rays,
+                   salt, sphT, sph8, out)
 
 
 def _fake_rays(salt):
@@ -464,21 +472,33 @@ def _bound(ops: float, nbytes: float, rate: float = FP32_LANE_OPS_PER_S):
 # is clocks.sm as every sampled window held it (docs/MICROBENCH_H100.json,
 # docs/MICROBENCH_V5_H100.json: 1980 MHz); at it, fp32's row is the data
 # sheet's 33.5e12 lane operations a second within 0.2%.
+# M4's and M5's visits add L1's wavefronts (l1_wavefronts): one a cycle an
+# SM, a 16-byte unit from each of 8 bank groups (``visit_load_model``).
 SM_CLOCK_HZ = 1.98e9
 PIPE_PER_CYCLE = {"fp32": 128, "minmax": 64, "int_add": 64, "mufu": 16,
-                  "l1_bytes": 128}
+                  "l1_bytes": 128, "l1_wavefronts": 1}
+# the rows of the memory path: a bound on one of them is "bytes"
+MEMORY_ROWS = ("l1_bytes", "l1_wavefronts", "hbm_bytes")
 
 
-def pipe_bound(counts: dict, nbytes: float) -> tuple[float, str, str]:
-    """(ms, "operations" or "bytes", the limiting row) of work ``counts``
-    {row of ``PIPE_PER_CYCLE``: lane operations, or bytes for l1_bytes}
-    with ``nbytes`` read from and written to HBM: the slowest row at its
-    rate on every SM, or the bytes at HBM's rate where that is slower."""
+def pipe_terms(counts: dict, nbytes: float) -> dict:
+    """{row: ms} of work ``counts`` {row of ``PIPE_PER_CYCLE``: lane
+    operations, bytes for l1_bytes, wavefronts for l1_wavefronts}, each at
+    its rate on every SM, and ``nbytes`` read from and written to HBM at
+    HBM's rate (hbm_bytes)."""
     terms = {row: c / (PIPE_PER_CYCLE[row] * N_SMS * SM_CLOCK_HZ) * 1e3
              for row, c in counts.items()}
     terms["hbm_bytes"] = nbytes / HBM_BYTES_PER_S * 1e3
+    return terms
+
+
+def pipe_bound(counts: dict, nbytes: float) -> tuple[float, str, str]:
+    """(ms, "operations" or "bytes", the limiting row) of ``pipe_terms``:
+    the slowest row."""
+    terms = pipe_terms(counts, nbytes)
     row = max(terms, key=terms.get)
-    return terms[row], "bytes" if row.endswith("bytes") else "operations", row
+    return (terms[row], "bytes" if row in MEMORY_ROWS else "operations",
+            row)
 
 
 def fma_work(n, streams, iters, mode):
@@ -573,6 +593,71 @@ def visit_work(n_rays, iters, sqrt_ops, div_ops):
     return ops, 4 * (ROWS * 8 + 8 * ROWS + 8 * n_rays + 1)
 
 
+# The fields of a table row one (ray, row) test uses: M4's row_key all 8,
+# M5's row_bc cx, cy, cz and r^2 (microbench_v5.VISIT_FIELDS).
+VISIT_FIELDS = tuple(range(8))
+VISIT_LAYOUTS = ("slot", "field")
+
+
+def visit_load_model(k: int, layout: str, fields, rows: int = ROWS) -> float:
+    """L1 wavefronts for every 32 (ray, row) tests of a visit at ``k``
+    lanes a ray, where lane l of a warp tests rows l % k + k e at step e
+    and a test reads ``fields`` of its row: from the ``slot``-major (rows,
+    8) table, 32 bytes a row, one load a 16-byte half that holds any of
+    them (the kernels' float4 and 4-byte ``__ldg``); or from the
+    ``field``-major (8, rows) copy, a 4-byte load a field.  By
+    ``m3m6_turns.load_model``'s rule: L1 serves a 16-byte unit from each of
+    8 bank groups a wavefront, lanes at one unit share it, lanes at
+    distinct units in one group take one each.  Averaged over the steps; a
+    step is 32 tests."""
+    if k not in (1, *LANE_COUNTS) or rows % k or layout not in VISIT_LAYOUTS:
+        raise ValueError(f"visit_load_model: k {k}, {layout!r}, rows {rows}")
+    lane = np.arange(32) % k
+    if layout == "slot":     # (base, bytes a row, offset) of each load
+        loads = [(0, 32, 16 * h) for h in sorted({f // 4 for f in fields})]
+    else:
+        loads = [(4 * f * rows, 4, 0) for f in sorted(set(fields))]
+    steps = rows // k
+    waves = 0
+    for e in range(steps):
+        row = lane + k * e
+        for base, stride, at in loads:
+            units = set(((base + stride * row + at) // 16).tolist())
+            waves += max(collections.Counter(u % 8 for u in units).values())
+    return waves / steps
+
+
+def visit_tests(n_rays, iters, rows=ROWS) -> int:
+    return n_rays * iters * rows
+
+
+def visit_least_wavefronts(fields, rows=ROWS) -> float:
+    """The fewest L1 wavefronts for 32 tests that any route's loads of
+    ``fields`` take (``visit_load_model`` at its best k and layout): what
+    the function needs, whichever route reads the table."""
+    return min(visit_load_model(k, layout, fields, rows)
+               for k in (1, *LANE_COUNTS) for layout in VISIT_LAYOUTS)
+
+
+def visit_pipes(n_rays, iters, sqrt_ops, div_ops):
+    """M4 by row (``pipe_bound``): every lane operation of ``visit_work``
+    on fp32 (a root and 1/a at M1's multiply-equivalents, as the operations
+    bound counts them) and the fewest L1 wavefronts its table loads need
+    (``visit_least_wavefronts``)."""
+    return {"fp32": visit_work(n_rays, iters, sqrt_ops, div_ops)[0],
+            "l1_wavefronts": visit_tests(n_rays, iters) / 32
+            * visit_least_wavefronts(VISIT_FIELDS)}
+
+
+def visit_route_ms(tests, lanes, layout, fields, rows=ROWS) -> float:
+    """A route's own L1 time: ``tests`` (ray, row) tests at
+    ``visit_load_model(lanes, layout, fields, rows)`` wavefronts for 32,
+    one a cycle an SM.  M4's and M5's entries keep it in ``pipe_ms`` as
+    ``l1_route``, a diagnostic beside the bound's rows."""
+    waves = tests / 32 * visit_load_model(lanes, layout, fields, rows)
+    return pipe_terms({"l1_wavefronts": waves}, 0)["l1_wavefronts"]
+
+
 # ---------------------------------------------------------------- timing
 
 def _timed(fn, min_window_ms=150.0, min_runs=3, max_runs=2000):
@@ -590,15 +675,17 @@ def _timed(fn, min_window_ms=150.0, min_runs=3, max_runs=2000):
 
 
 # a window under this is near the host's cost of a call: such an entry also
-# carries the device's own time (``_device_entry``)
+# carries the device's own time (``_device_entry``); M4's and M5's visits
+# carry it under a millisecond, where the host's cost is a few percent
 DEVICE_MS_BELOW = 0.05
+VISIT_DEVICE_MS_BELOW = 1.0
 
 
-def _device_entry(fn, window_ms) -> dict:
+def _device_entry(fn, window_ms, below=DEVICE_MS_BELOW) -> dict:
     """The device's own time of a call (``utils.profiling.device_ms``)
-    where ``window_ms`` is under ``DEVICE_MS_BELOW``."""
+    where ``window_ms`` is under ``below``."""
     return (dict(device_ms=device_ms(fn, window_ms, clock_hz=SM_CLOCK_HZ))
-            if window_ms < DEVICE_MS_BELOW else {})
+            if window_ms < below else {})
 
 
 def _device_note(e) -> str:
@@ -693,7 +780,8 @@ def _entry(probe, name, label, ms, runs, work, plain_ms, max_err,
     bound_ms, bound_by = _bound(ops, nbytes, rate)
     if pipes is not None:
         extra.update(old_bound_ms=bound_ms, old_bound_by=bound_by,
-                     old_share=bound_ms / ms, pipes=pipes)
+                     old_share=bound_ms / ms, pipes=pipes,
+                     pipe_ms=pipe_terms(pipes, nbytes))
         bound_ms, bound_by, extra["bound_row"] = pipe_bound(pipes, nbytes)
     return dict(probe=probe, name=name, label=label, ms=ms, runs=runs,
                 ops=ops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
@@ -928,6 +1016,19 @@ def run_m3(dev, log=print):
 
 
 def run_m4(dev, weights, log=print):
+    """Every M4 way at each ray count, on the TPU probe's spheres and the
+    seeded ones: timed, with the device's own time under
+    ``VISIT_DEVICE_MS_BELOW``, bit-equal to ``visit_state_plain``, with its
+    bound by row (``visit_pipes``)."""
+    return _run_m4(dev, weights, log, {
+        w: (1 if w == "thread" else VISIT_LANES,
+            lambda *a, w=w: visit(*a, way=w)) for w in VISIT_WAYS})
+
+
+def _run_m4(dev, weights, log, calls):
+    """``run_m4`` of ``calls`` {way: (lanes a ray, a launcher (salt, sphT,
+    sph8, n_rays, iters))}: this build's ways, or another build's for a
+    probe of two builds in turns."""
     salt = torch.tensor([SALT], dtype=F32, device=dev)
     out = []
     for which in VISIT_INPUTS:
@@ -938,29 +1039,42 @@ def run_m4(dev, weights, log=print):
         tile = pay + krun.float()
         winners = int(torch.unique(krun & 0x7F).numel())
         for n_rays in VISIT_RAYS:
-            for way in VISIT_WAYS:
+            for way, (lanes, fn) in calls.items():
                 label = visit_label(way, n_rays)
                 name = f"{label} rays ({which})"
-                ms, y, _, runs = _timed(
-                    lambda: visit(salt, sphT, sph8, n_rays, VISIT_ITERS, way),
-                    min_window_ms=50.0)
+                call = lambda: fn(salt, sphT, sph8, n_rays,  # noqa: E731
+                                  VISIT_ITERS)
+                ms, y, _, runs = _timed(call, min_window_ms=50.0)
                 _bit_equal(name, y, tile.expand_as(y))
                 visits = n_rays * VISIT_ITERS
                 e = _entry("M4", name, label, ms, runs,
                            (*visit_work(n_rays, VISIT_ITERS, weights["sqrt"],
                                         weights["rcp"]),
                             FP32_LANE_OPS_PER_S), plain_ms, 0.0,
-                           way=way, rays=n_rays, input=which,
+                           pipes=visit_pipes(n_rays, VISIT_ITERS,
+                                             weights["sqrt"], weights["rcp"]),
+                           way=way, lanes=lanes, rays=n_rays,
+                           input=which,
                            winning_rows=winners,
                            ns_per_ray_visit=ms * 1e6 / visits,
-                           ray_visits_per_s=visits / (ms * 1e-3))
-                log(f"[probe] {name}: {ms:.4f} ms, "
+                           ray_visits_per_s=visits / (ms * 1e-3),
+                           **_device_entry(call, ms, VISIT_DEVICE_MS_BELOW))
+                e["pipe_ms"]["l1_route"] = visit_route_ms(
+                    visit_tests(n_rays, VISIT_ITERS), lanes, "slot",
+                    VISIT_FIELDS)
+                log(f"[probe] {name}: {ms:.4f} ms{_device_note(e)}, "
                     f"{e['ns_per_ray_visit']:.4f} ns a ray-visit "
-                    f"({e['ray_visits_per_s']:.4e}/s), bound "
-                    f"{e['bound_ms']:.4f} ms ({e['share']:.4f}); "
+                    f"({e['ray_visits_per_s']:.4e}/s), {_pipe_note(e)}; "
                     f"{winners} rows win; bit-equal")
                 out.append(e)
     return out
+
+
+def _pipe_note(e) -> str:
+    """An M4 or M5 entry's bound, its share, and each row's time."""
+    rows = ", ".join(f"{r} {m:.4f}" for r, m in e["pipe_ms"].items())
+    return (f"bound {e['bound_ms']:.4f} ms on {e['bound_row']} "
+            f"({e['share']:.4f}; {rows})")
 
 
 def run(device=None, log=print) -> dict:

@@ -15,7 +15,10 @@ beside each kernel:
   MXU dot; on the card a select of an indexed load).  Payload ``defer``:
   the key masks ~511 and the visit carries the index of the winning visit,
   whose payload a bounce would read once (M6).  One thread per ray (K1's
-  design) or a warp per ray; the table is read through ``__ldg`` (L1).
+  design) or k lanes a ray (``VISIT_LANES``, by width); the table is read
+  through ``__ldg`` (L1) in K1's slot-major layout, or for the lanes way
+  where ``VISIT_LAYOUT`` says so from a field-major copy made in the
+  call.
 * M6 (``gather_kernel``): the deferred read, 64 times per lane: the 8
   fields of slot (lane * 37 + i) mod (chunks * 128) of an (8, chunks * 128)
   table, summed in field order and added to a running sum; through
@@ -50,10 +53,12 @@ import torch
 
 from .. import vec
 from ..utils.platform import resolve_device
-from .microbench import (F32, I32, FP32_LANE_OPS_PER_S, SALT, ClockSampler,
-                         _bit_equal, _c, _device_entry, _device_note, _entry,
-                         _expect, _launch, _on_card, _plain_timed, _smi,
-                         _timed, measure_mul_equivalents, sass_counts)
+from .microbench import (F32, I32, FP32_LANE_OPS_PER_S, SALT,
+                         VISIT_DEVICE_MS_BELOW, ClockSampler, _bit_equal, _c,
+                         _device_entry, _device_note, _entry, _expect,
+                         _launch, _on_card, _pipe_note, _plain_timed, _smi,
+                         _timed, measure_mul_equivalents, sass_counts,
+                         visit_least_wavefronts, visit_route_ms)
 
 T = 512                           # the TPU probe's lane width
 GRID = 16                         # its grid: 8,192 rays or lanes
@@ -62,7 +67,18 @@ GATHER_ITERS = 64                 # gather iterations (:147)
 ROWS = (32, 64, 128)
 PAYLOADS = ("mxu", "defer")
 CHUNKS = (4, 1)
-VISIT_WAYS = ("thread", "warp")
+VISIT_WAYS = ("thread", "lanes")
+# k of the lanes way at each width (csrc/microbench_v5.cu kVisitLanes): the
+# card's sweep at 8,192 rays (probes/m4m5_turns.py,
+# docs/M4M5_TURNS_H100.json)
+VISIT_LANES = {32: 8, 64: 32, 128: 8}
+# the lanes way's table at each width (csrc/microbench_v5.cu kFieldMajor):
+# K1's slot-major (rows, 8), or the field-major (8, rows) copy
+# (``field_major``) where the sweep found it more than 5% faster
+VISIT_LAYOUT = {32: "field", 64: "field", 128: "slot"}
+# the fields of a table row row_bc uses: cx, cy, cz and r^2
+# (microbench.visit_load_model, visit_least_wavefronts)
+VISIT_FIELDS = (0, 1, 2, 7)
 # the C entry's way codes: __ldg from the slot-major (W, 8) copy, K1's
 # layout; the (8, W) table staged in shared memory as it is
 GATHER_WAYS = ("ldg", "smem")
@@ -82,6 +98,13 @@ def visit_label(rows: int, payload: str, way: str, n_rays: int) -> str:
     return f"M5 visit_r{rows}_{payload} {way} {n_rays}"
 
 
+def way_route(way: str, rows: int) -> tuple[int, str]:
+    """(lanes a ray, the table's layout) of a way at a width: the C entry's
+    code and the table it is given."""
+    return ((1, "slot") if way == "thread"
+            else (VISIT_LANES[rows], VISIT_LAYOUT[rows]))
+
+
 def visit_v5(salt, sphT, sph8, n_rays, rows, payload="mxu", way="thread",
              iters=ITERS):
     """M5: ``iters`` visits of the ``rows`` spheres of ``sphT`` (rows, 8),
@@ -89,7 +112,9 @@ def visit_v5(salt, sphT, sph8, n_rays, rows, payload="mxu", way="thread",
     j % 512 of tools/microbench_v5.py:55-63); out (n_rays / 512, 8, 512) =
     (pay + float(krun)) + float(cidx).  ``payload``: ``mxu`` carries the
     winner's 8 fields of ``sph8`` (8, rows), ``defer`` the winning visit's
-    index.  ``way``: one thread per ray, or a warp per ray."""
+    index.  ``way``: one thread per ray, or ``VISIT_LANES[rows]`` lanes a
+    ray, which reads the table in ``VISIT_LAYOUT[rows]`` (the field-major
+    copy made here; ``way_route``)."""
     _expect(salt, (1,), F32, "salt")
     _expect(sphT, (rows, 8), F32, "M5 sphT")
     _expect(sph8, (8, rows), F32, "M5 sph8")
@@ -100,10 +125,18 @@ def visit_v5(salt, sphT, sph8, n_rays, rows, payload="mxu", way="thread",
     if not _on_card(salt, sphT, sph8):
         return visit_v5_plain(salt, sphT, sph8, n_rays, rows, payload, iters)
     out = torch.empty((n_rays // T, 8, T), dtype=F32, device=salt.device)
-    return _launch(visit_label(rows, payload, way, n_rays), out, 0,
-                   VISIT_WAYS.index(way), rows, PAYLOADS.index(payload),
-                   iters, n_rays, salt, sphT, sph8, out,
-                   kernel="microbench_v5")
+    lanes, layout = way_route(way, rows)
+    if layout == "field":
+        sphT = field_major(sphT)
+    return _launch(visit_label(rows, payload, way, n_rays), out, 0, lanes,
+                   rows, PAYLOADS.index(payload), iters, n_rays, salt, sphT,
+                   sph8, out, kernel="microbench_v5")
+
+
+def field_major(sphT):
+    """The (8, rows) copy of the (rows, 8) table: field f of every row in
+    row f, a 4-byte load a field for a warp's consecutive rows."""
+    return sphT.t().contiguous()
 
 
 def fake_rays(salt):
@@ -296,6 +329,17 @@ def visit_v5_work(n_rays, rows, payload, iters, sqrt_ops, div_ops):
     return ops, 4 * (rows * 8 + 8 * rows + 8 * n_rays + 1)
 
 
+def visit_v5_pipes(n_rays, rows, payload, iters, sqrt_ops, div_ops):
+    """M5 by row (``microbench.pipe_bound``): every lane operation of
+    ``visit_v5_work`` on fp32 (a root and 1/a at M1's multiply-equivalents)
+    and the fewest L1 wavefronts its table loads need
+    (``microbench.visit_least_wavefronts``)."""
+    return {"fp32": visit_v5_work(n_rays, rows, payload, iters, sqrt_ops,
+                                  div_ops)[0],
+            "l1_wavefronts": n_rays * iters * rows / 32
+            * visit_least_wavefronts(VISIT_FIELDS, rows)}
+
+
 # Per lane and step of M6: the slot (a multiply, an add and the modulo,
 # one each), the 8 field sums and the running add = 12.
 GATHER_OPS = 12
@@ -331,8 +375,20 @@ def warm_plain(salt):
 
 def run_m5(dev, weights, log=print):
     """Every M5 variant on the card, on the TPU probe's spheres and the
-    seeded ones: timed, bit-equal to its plain version, with its bound (the
-    root and 1/a at ``weights``, M1's multiply-equivalents)."""
+    seeded ones: timed, with the device's own time under
+    ``VISIT_DEVICE_MS_BELOW``, bit-equal to its plain version, with its
+    bound by row (``visit_v5_pipes``: the root and 1/a at ``weights``, M1's
+    multiply-equivalents, and L1's wavefronts)."""
+    return _run_m5(dev, weights, log, {
+        w: ({r: way_route(w, r) for r in ROWS},
+            lambda *a, w=w: visit_v5(*a[:6], way=w, iters=a[6]))
+        for w in VISIT_WAYS})
+
+
+def _run_m5(dev, weights, log, calls):
+    """``run_m5`` of ``calls`` {way: ({rows: (lanes a ray, layout)}, a
+    launcher (salt, sphT, sph8, n_rays, rows, payload, iters))}: this
+    build's ways, or another build's for a probe of two builds in turns."""
     salt = torch.tensor([SALT], dtype=F32, device=dev)
     out = []
     warm_plain(salt)
@@ -345,28 +401,34 @@ def run_m5(dev, weights, log=print):
                 tile = visit_v5_tile(*state)
                 winners = int(torch.unique(state[0] & (rows - 1)).numel())
                 for n_rays in RAYS:
-                    for way in VISIT_WAYS:
+                    for way, (route, fn) in calls.items():
+                        lanes, layout = route[rows]
                         label = visit_label(rows, payload, way, n_rays)
                         name = f"{label} rays ({which})"
-                        ms, y, _, runs = _timed(
-                            lambda: visit_v5(salt, sphT, sph8, n_rays, rows,
-                                             payload, way, ITERS),
-                            min_window_ms=50.0)
+                        call = lambda: fn(  # noqa: E731
+                            salt, sphT, sph8, n_rays, rows, payload, ITERS)
+                        ms, y, _, runs = _timed(call, min_window_ms=50.0)
                         _bit_equal(name, y, tile.expand_as(y))
                         visits = n_rays * ITERS
+                        w = (weights["sqrt"], weights["rcp"])
                         e = _entry(
                             "M5", name, label, ms, runs,
-                            (*visit_v5_work(n_rays, rows, payload, ITERS,
-                                            weights["sqrt"], weights["rcp"]),
+                            (*visit_v5_work(n_rays, rows, payload, ITERS, *w),
                              FP32_LANE_OPS_PER_S), plain_ms, 0.0,
+                            pipes=visit_v5_pipes(n_rays, rows, payload, ITERS,
+                                                 *w),
                             rows=rows, payload=payload, way=way,
-                            rays=n_rays, input=which, winning_rows=winners,
+                            lanes=lanes, layout=layout, rays=n_rays,
+                            input=which,
+                            winning_rows=winners,
                             ns_per_ray_visit=ms * 1e6 / visits,
-                            ns_per_row_test=ms * 1e6 / (visits * rows))
-                        log(f"[probe] {name}: {ms:.4f} ms, "
+                            ns_per_row_test=ms * 1e6 / (visits * rows),
+                            **_device_entry(call, ms, VISIT_DEVICE_MS_BELOW))
+                        e["pipe_ms"]["l1_route"] = visit_route_ms(
+                            visits * rows, lanes, layout, VISIT_FIELDS, rows)
+                        log(f"[probe] {name}: {ms:.4f} ms{_device_note(e)}, "
                             f"{e['ns_per_ray_visit']:.4f} ns a ray-visit, "
-                            f"bound {e['bound_ms']:.4f} ms "
-                            f"({e['share']:.4f}); {winners} rows win; "
+                            f"{_pipe_note(e)}; {winners} rows win; "
                             "bit-equal")
                         out.append(e)
     return out

@@ -5,10 +5,10 @@ parent's source (from another checkout, e.g. the parent commit unpacked
 with ``git archive``) and this checkout's, one nvcc a source, all started
 together, into ``build/turns/``; then it runs the same Python on each
 build in turns, ``ORDER``: parent, change, change, parent, twice, so that
-drift on the card falls on both alike.  ``m2_turns``, ``m7_turns`` and
-``m3m6_turns`` are such probes.  A probe may also build side variants of
-this checkout's sources (``rewrite``: one constant changed), to time in
-turns with the change.
+drift on the card falls on both alike.  ``m2_turns``, ``m7_turns``,
+``m3m6_turns`` and ``m4m5_turns`` are such probes.  A probe may also build
+side variants of this checkout's sources (``rewrite``: named lines
+replaced), to time in turns with the change.
 """
 from __future__ import annotations
 
@@ -45,7 +45,8 @@ def build(parent: Path, *kernels: str, sides: dict | None = None) -> dict:
     library, its path)} of each of ``kernels``' sources
     (``render/_cuda.KERNELS``) in ``parent`` and in this checkout, and of
     ``sides`` ({name: {kernel: source path}}, e.g. ``rewrite``'s), one nvcc
-    a source, all started together."""
+    a source, all started together; nvcc's report (ptxas's registers and
+    spills) beside each library, as ``<library>.log``."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = [(name, kernel, path) for kernel in kernels for name, path in (
         ("parent", parent / "raytracers_tpu_torch" / "csrc"
@@ -64,6 +65,7 @@ def build(parent: Path, *kernels: str, sides: dict | None = None) -> dict:
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name} {kernel}:\n{err}")
+        so.with_suffix(".log").write_text(err)     # ptxas's report
         lib = ctypes.CDLL(str(so.resolve()))
         _, fn_name, argtypes = _cuda.KERNELS[kernel]
         fn = getattr(lib, fn_name)

@@ -526,9 +526,29 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
         assert torch.equal(mb.reduce_min(v, 3, 2, way),
                            mb.reduce_plain(v, 3, 2))
     sphT, sph8 = (torch.from_numpy(x) for x in mb.visit_inputs("seeded"))
-    assert torch.equal(mb.visit(s, sphT, sph8, 512, 2, "warp"),
+    assert torch.equal(mb.visit(s, sphT, sph8, 512, 2, "lanes"),
                        mb.visit_plain(s, sphT, sph8, 512, 2))
     assert dict(mb.LAUNCHES) == before
+
+
+def test_visit_ways_and_their_codes(monkeypatch):
+    """The C entry's code of an M4 way is its lanes a ray: 1 for the thread
+    way, the build's k (``VISIT_LANES``) for the lanes way; another way
+    (the parent's ``warp`` among them) is refused before any launch."""
+    assert mb.VISIT_WAYS == ("thread", "lanes")
+    seen = []
+    monkeypatch.setattr(mb, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(mb, "_launch", lambda label, out, *args, **kw:
+                        seen.append((label, args[1])))
+    s = _salt()
+    sphT, sph8 = (torch.from_numpy(x) for x in mb.visit_inputs("tpu"))
+    mb.visit(s, sphT, sph8, 512, 2, "thread")
+    mb.visit(s, sphT, sph8, 512, 2, "lanes")
+    assert seen == [("M4 thread 512", 1), ("M4 lanes 512", mb.VISIT_LANES)]
+    for way in ("warp", "lanes8", ""):
+        with pytest.raises(ValueError):
+            mb.visit(s, sphT, sph8, 512, 2, way)
+    assert len(seen) == 2
 
 
 def test_reduce_routes_and_their_codes(monkeypatch):
@@ -622,6 +642,52 @@ def test_recounted_bounds_by_row():
     # bytes bound where HBM is the slowest row
     assert mb.pipe_bound({"fp32": 1}, 3.35e9) == (
         pytest.approx(1.0), "bytes", "hbm_bytes")
+
+
+@pytest.mark.parametrize("k,slot", [(1, 2), (4, 2), (8, 4), (16, 8),
+                                    (32, 16)])
+def test_visit_load_model(k, slot):
+    """L1 wavefronts for 32 of M4's (ray, row) tests at k lanes a ray: the
+    slot-major row's two 16-byte loads fall in an even and an odd bank
+    group, k distinct rows a load, so 2 ceil(k / 4); the field-major copy
+    takes one wavefront a field, 8 at any k."""
+    assert mb.visit_load_model(k, "slot", mb.VISIT_FIELDS) == slot
+    assert mb.visit_load_model(k, "field", mb.VISIT_FIELDS) == 8
+    with pytest.raises(ValueError):
+        mb.visit_load_model(k, "tiled", mb.VISIT_FIELDS)
+
+
+def test_visit_pipes_bound_by_row():
+    """M4's bound by row at 1M rays: every lane operation on fp32 (57.35
+    ms with a root and 1/a at M1's weights), and the fewest L1 wavefronts
+    any route's loads need, 2 for 32 tests (slot-major at k = 1 or 4), at
+    1 a cycle an SM: 8.22 ms, so the operations bind whatever the route.  A
+    route's own wavefronts are a diagnostic beside the bound: 65.73 ms for
+    the parent's warp a ray (k = 32, 16 for 32 tests), a quarter of that at
+    k = 8."""
+    w = json.loads(mb.RECORD.read_text())["mul_equivalents"]
+    n = 1 << 20
+    ops, nbytes = mb.visit_work(n, 256, w["sqrt"], w["rcp"])
+    assert mb.visit_least_wavefronts(mb.VISIT_FIELDS) == 2
+    pipes = mb.visit_pipes(n, 256, w["sqrt"], w["rcp"])
+    assert pipes["fp32"] == ops
+    assert pipes["l1_wavefronts"] == n * 256 * 128 / 32 * 2
+    terms = mb.pipe_terms(pipes, nbytes)
+    assert terms["fp32"] == pytest.approx(57.35, abs=0.1)
+    assert terms["l1_wavefronts"] == pytest.approx(65.73 / 8, abs=0.01)
+    assert mb.pipe_bound(pipes, nbytes)[1:] == ("operations", "fp32")
+    tests = mb.visit_tests(n, 256)
+    warp = mb.visit_route_ms(tests, 32, "slot", mb.VISIT_FIELDS)
+    assert warp == pytest.approx(65.73, abs=0.01)
+    assert mb.visit_route_ms(tests, 8, "slot", mb.VISIT_FIELDS) == (
+        pytest.approx(warp / 4))
+    assert mb.visit_route_ms(tests, 32, "field", mb.VISIT_FIELDS) == (
+        pytest.approx(warp / 2))
+    e = mb._entry("M4", "x", "x", 76.572, 3, (ops, nbytes,
+                                             mb.FP32_LANE_OPS_PER_S),
+                  1.0, 0.0, pipes=pipes)
+    assert e["pipe_ms"] == terms
+    assert e["share"] == pytest.approx(terms["fp32"] / 76.572)
 
 
 def test_entry_keeps_the_old_bound_beside_the_recount():
@@ -900,3 +966,44 @@ def test_card_visit_equals_plain(cuda, way, which):
     y = mb.visit(s, sphT, sph8, 4 * T, 5, way)
     ref = mb.visit_plain(s, sphT, sph8, 4 * T, 5)
     assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 16, 32])
+def test_card_visit_refuses_a_k_not_built(cuda, k):
+    """The lanes way runs at the build's k only: another k, given to the C
+    entry as its way code (``m4m5_turns.launch_m4``), is refused, and the
+    launch raises without being counted."""
+    from raytracers_tpu_torch.probes import m4m5_turns as tm
+    s = torch.tensor([SALT], device=cuda)
+    sphT, sph8 = (torch.from_numpy(x).to(cuda) for x in mb.visit_inputs("tpu"))
+    if k == mb.VISIT_LANES:
+        pytest.skip("the build's own k")
+    n0 = mb.LAUNCHES[mb.visit_label("lanes", T)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tm.launch_m4("lanes", k, s, sphT, sph8, T, 2)
+    assert mb.LAUNCHES[mb.visit_label("lanes", T)] == n0
+
+
+@pytest.mark.cuda
+def test_card_visit_sass(cuda):
+    """M4's two visit kernels (k = 1 and the build's k): no local memory;
+    every FFMA one of the two refinement steps of a sqrtf's or 1/a's MUFU
+    (-fmad=false contracts nothing else); the lanes way folds its key by
+    log2 k shuffles (or one REDUX at k = 32) and the thread way by none."""
+    from raytracers_tpu_torch.render import _cuda
+    _cuda.load("microbench")
+    counts, _ = mb.sass_counts(_cuda.build_info["microbench"]["path"])
+    visits = {f: c for f, c in counts.items() if "visit_lanes" in f}
+    assert len(visits) == 2, visits
+    for f, c in visits.items():
+        k = int(f.split("visit_lanesILi")[1].split("E")[0])
+        assert "LDL" not in c and "STL" not in c, (f, c)
+        assert c.get("MUFU", 0) >= 1 and c.get("FFMA", 0) == 2 * c["MUFU"], (
+            f, c)
+        if k == 1:
+            assert not c.get("SHFL") and not c.get("REDUX"), (f, c)
+        elif k == 32:
+            assert c.get("REDUX", 0) >= 1, (f, c)
+        else:
+            assert c.get("SHFL", 0) >= int(math.log2(k)), (f, c)

@@ -415,6 +415,168 @@ def test_strided_plain_at_the_probe_stride_is_gather_plain(chunks):
                            v5.gather_plain(s, tbl, 1024, chunks))
 
 
+@pytest.mark.parametrize("rows", v5.ROWS)
+def test_visit_v5_load_model(rows):
+    """L1 wavefronts for 32 of M5's (ray, row) tests at k lanes a ray:
+    row_bc's 16 bytes at byte 0 (an even bank group) and r^2 at byte 28
+    (an odd one), k distinct rows a load: 2, 2, 4, 8, 16 at k = 1, 4, 8,
+    16, 32 at every width; the field-major copy, a load for each of cx,
+    cy, cz and r^2, 4 at any k."""
+    got = [mb.visit_load_model(k, "slot", v5.VISIT_FIELDS, rows)
+           for k in (1, 4, 8, 16, 32)]
+    assert got == [2, 2, 4, 8, 16]
+    assert {mb.visit_load_model(k, "field", v5.VISIT_FIELDS, rows)
+            for k in (1, 4, 8, 16, 32)} == {4}
+
+
+def test_visit_v5_pipes():
+    """M5's bound by row: its operations (41.98 ms at W = 128 and 1M rays)
+    and the fewest L1 wavefronts any route's loads need, 2 for 32 tests
+    (slot-major at k = 1 or 4; field-major takes 4), so the operations
+    bind.  The parent's warp a ray (k = 32) takes 16 wavefronts for 32
+    tests, 65.73 ms at one a cycle an SM on 132 SMs at 1980 MHz, within
+    0.5% of the 65.4154 ms it measured (PR 7): a route's own time, kept
+    beside the bound as a diagnostic."""
+    w = dict(sqrt=8.8351, rcp=8.7689)
+    n = 1 << 20
+    for rows in v5.ROWS:
+        assert mb.visit_least_wavefronts(v5.VISIT_FIELDS, rows) == 2
+    pipes = v5.visit_v5_pipes(n, 128, "mxu", 256, w["sqrt"], w["rcp"])
+    assert pipes["fp32"] == v5.visit_v5_work(n, 128, "mxu", 256, w["sqrt"],
+                                             w["rcp"])[0]
+    assert pipes["l1_wavefronts"] == n * 256 * 4 * 2
+    ms, by, row = mb.pipe_bound(pipes, 0)
+    assert (by, row) == ("operations", "fp32")
+    assert ms == pytest.approx(41.98, rel=0.01)
+    warp = mb.visit_route_ms(n * 256 * 128, 32, "slot", v5.VISIT_FIELDS, 128)
+    assert warp == pytest.approx(n * 256 * 4 * 16 / (132 * 1.98e9) * 1e3)
+    assert warp == pytest.approx(65.73, abs=0.01)
+    assert mb.visit_route_ms(n * 256 * 128, 8, "slot", v5.VISIT_FIELDS,
+                             128) == pytest.approx(warp / 4)
+
+
+def test_visit_lanes_equal_the_sources():
+    """The wrappers' k and layout of the lanes way (``VISIT_LANES``,
+    ``VISIT_LAYOUT``) are the ones the sources build (csrc/microbench_v5.cu
+    and microbench.cu kVisitLanes, M5's field-major flags), with M4 on K1's
+    slot-major table, its shifted table formed once a visit."""
+    from raytracers_tpu_torch.probes import m4m5_turns as tm
+    ch = tm.change_spec()
+    assert ch["m5"] == {r: (v5.VISIT_LANES[r], v5.VISIT_LAYOUT[r])
+                        for r in v5.ROWS}
+    assert ch["m4"] == (mb.VISIT_LANES, "slot")
+    assert ch["shift"] is True and ch["bounds"] == "256"
+    assert all(k in mb.LANE_COUNTS for k in (*v5.VISIT_LANES.values(),
+                                             mb.VISIT_LANES))
+
+
+def test_lanes_way_reads_its_layout(monkeypatch):
+    """The lanes way passes the field-major copy, made in the call, where
+    ``VISIT_LAYOUT`` says so, and the table as it is elsewhere; the thread
+    way always reads K1's slot-major table."""
+    seen = []
+    monkeypatch.setattr(v5, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(v5, "_launch", lambda label, out, *args, **kw:
+                        seen.append((label, args[1], args[7])))
+    s = _salt()
+    for rows in v5.ROWS:
+        sphT, sph8 = _m5_inputs("seeded", rows)
+        for way in v5.VISIT_WAYS:
+            v5.visit_v5(s, sphT, sph8, T, rows, "mxu", way, 2)
+            label, code, tbl = seen.pop()
+            lanes, layout = v5.way_route(way, rows)
+            assert code == lanes and label.endswith(f"{way} {T}")
+            want = v5.field_major(sphT) if layout == "field" else sphT
+            assert torch.equal(tbl, want) and tbl.is_contiguous()
+            assert (tbl is sphT) == (layout == "slot")
+    assert v5.way_route("thread", 64) == (1, "slot")
+
+
+def test_m4m5_side_builds_rewrite_their_lines(tmp_path, monkeypatch):
+    """The M4/M5 turns probe's side builds: k in {4, 8, 16, 32} in the
+    slot-major and the field-major layout (M4's loads of a row rewritten
+    for it), M4's shift added by each lane, the visit kernels asking for
+    one block an SM at least; each rewrites lines that occur once, only in
+    the sources it changes, and none equals the change."""
+    from raytracers_tpu_torch.probes import m4m5_turns as tm
+    from raytracers_tpu_torch.probes import turns
+    monkeypatch.setattr(turns, "OUT_DIR", tmp_path)
+    specs = tm.side_specs()
+    ch = tm.change_spec()
+    assert ch["bounds"] == "256"
+    sweep = {f"{p}k{k}" for p in ("", "field_") for k in tm.SWEEP_K}
+    assert set(specs) == sweep | {"shift_each", "min_blocks1"}
+    assert specs["field_k16"]["m5"] == dict.fromkeys(v5.ROWS, (16, "field"))
+    assert specs["k4"]["m4"] == (4, "slot")
+    assert set(tm.side_edits(specs["shift_each"])) == {"microbench"}
+    assert specs["shift_each"]["shift"] is False and ch["shift"] is True
+    assert tm.side_edits(specs["shift_each"]) == {"microbench": [tm.M4_SHIFT]}
+    assert tm.M4_FIELD in tm.side_edits(specs["field_k32"])["microbench"]
+    assert tm.M4_FIELD not in tm.side_edits(specs["k4"])["microbench"]
+    paths = tm.side_sources()
+    for name, spec in specs.items():
+        for kernel, edits in tm.side_edits(spec).items():
+            text = paths[name][kernel].read_text()
+            for old, new in edits:
+                assert new in text and old not in text, (name, old)
+    assert "kVisitLanes[3] = {32, 32, 32};" in paths["field_k32"][
+        "microbench_v5"].read_text()
+    assert "__launch_bounds__(256, 1)\nvisit_lanes(" in paths[
+        "min_blocks1"]["microbench"].read_text()
+    assert tm.side_edits(ch) == {}
+
+
+def test_m4m5_parent_calls_take_the_parent_codes(monkeypatch):
+    """The parent's builds are launched by their own way codes (thread 0,
+    warp 1) under labels of their own ways."""
+    from raytracers_tpu_torch.probes import m4m5_turns as tm
+    seen = []
+    monkeypatch.setattr(mb, "_launch", lambda label, out, *args, **kw:
+                        seen.append((label, args[0], args[1])))
+    m4, m5 = tm.parent_calls()
+    s = _salt()
+    for way, (lanes, fn) in m4.items():
+        fn(s, None, None, 512, 3)
+    for way, (route, fn) in m5.items():
+        assert route == dict.fromkeys(
+            v5.ROWS, ({"thread": 1, "warp": 32}[way], "slot"))
+        fn(s, None, None, 512, 64, "defer", 3)
+    assert seen == [("M4 thread 512", 3, 0), ("M4 warp 512", 3, 1),
+                    ("M5 visit_r64_defer thread 512", 0, 0),
+                    ("M5 visit_r64_defer warp 512", 0, 1)]
+
+
+def test_m4m5_sweep_picks_k_at_the_probe_size():
+    """The sweep reads each build's median (the device's own where taken)
+    by k on the change's layout, keeps the other layout and the shift as
+    sides, and picks the fastest k at 8,192 rays (M5) and 4,096 (M4)."""
+    from raytracers_tpu_torch.probes import m4m5_turns as tm
+    ch = dict(m5={32: (8, "field"), 64: (8, "slot"), 128: (8, "slot")},
+              m4=(8, "slot"), shift=False, bounds="256")
+
+    def all_at(k, layout):
+        return dict(ch, m5=dict.fromkeys(v5.ROWS, (k, layout)),
+                    m4=(k, layout))
+    specs = {"change": ch, "k4": all_at(4, "slot"),
+             "field_k8": all_at(8, "field"),
+             "shift_once": dict(ch, shift=True)}
+    med = {"M5 r128 8192": {"change": 0.5, "k4": 0.45, "field_k8": 0.4},
+           "M5 r32 8192": {"change": 0.2, "k4": 0.25, "field_k8": 0.2},
+           "M5 r128 1048576": {"change": 50.0, "k4": 55.0, "field_k8": 52.0},
+           "M4 4096": {"change": 0.3, "k4": 0.35, "shift_once": 0.2}}
+    side = dict(specs=specs, median_ms=med,
+                median_device_ms={"M5 r128 8192": {"change": 0.48}})
+    out = tm.sweep(side, log=lambda *a: None)
+    assert out["rows"]["M5 r128 8192"]["by_k"] == {8: 0.48, 4: 0.45}
+    assert out["rows"]["M5 r128 8192"]["sides"]["field_k8"]["ms"] == 0.4
+    # at 32 rows the change is field-major: the slot-major k4 is the side
+    assert out["rows"]["M5 r32 8192"]["by_k"] == {8: 0.2}
+    assert out["rows"]["M5 r32 8192"]["sides"]["k4"]["layout"] == "slot"
+    assert out["rows"]["M4 4096"]["sides"]["shift_once"]["shift"] is True
+    assert out["pick_at_probe_size"] == {"M5 r128 8192": 4,
+                                         "M5 r32 8192": 8, "M4 4096": 8}
+
+
 def test_width_ratios():
     m5 = [dict(input="tpu", payload="mxu", way="thread", rays=512, rows=r,
                ms=float(r)) for r in v5.ROWS]
@@ -502,3 +664,47 @@ def test_card_gather_sass(cuda):
         if way == 0:
             assert c.get("LDG.128", 0) >= 2 and c["LDG.128"] % 2 == 0
             assert c["LDG"] == c["LDG.128"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 16, 32])
+def test_card_visit_refuses_a_k_not_built(cuda, k):
+    """The lanes way runs at the build's k of the width only: another k,
+    given to the C entry as its way code (``m4m5_turns.launch_m5``), is
+    refused, and the launch raises without being counted."""
+    from raytracers_tpu_torch.probes import m4m5_turns as tm
+    s = torch.tensor([SALT], device=cuda)
+    sphT, sph8 = _m5_inputs("tpu", 64, cuda)
+    if k == v5.VISIT_LANES[64]:
+        pytest.skip("the build's own k")
+    label = v5.visit_label(64, "mxu", "lanes", T)
+    n0 = mb.LAUNCHES[label]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tm.launch_m5("lanes", k, s, v5.field_major(sphT), sph8, T, 64, "mxu",
+                     2)
+    assert mb.LAUNCHES[label] == n0
+
+
+@pytest.mark.cuda
+def test_card_visit_sass(cuda):
+    """M5's visit kernels, a thread a ray and the build's k at each width,
+    both payloads: no local memory; every FFMA one of the two refinement
+    steps of a sqrtf's or 1/a's MUFU (-fmad=false contracts nothing else);
+    the lanes way folds by log2 k shuffles (one REDUX at k = 32), the
+    thread way by none."""
+    from raytracers_tpu_torch.render import _cuda
+    _cuda.load("microbench_v5")
+    counts, _ = mb.sass_counts(_cuda.build_info["microbench_v5"]["path"])
+    visits = {f: c for f, c in counts.items() if "visit_lanes" in f}
+    assert len(visits) == 2 * len(v5.ROWS) * len(v5.PAYLOADS), visits
+    for f, c in visits.items():
+        k = int(f.split("visit_lanes")[1].split("ELi")[-1].split("E")[0])
+        assert "LDL" not in c and "STL" not in c, (f, c)
+        assert c.get("MUFU", 0) >= 1 and c.get("FFMA", 0) == 2 * c["MUFU"], (
+            f, c)
+        if k == 1:
+            assert not c.get("SHFL") and not c.get("REDUX"), (f, c)
+        elif k == 32:
+            assert c.get("REDUX", 0) >= 1, (f, c)
+        else:
+            assert c.get("SHFL", 0) >= int(np.log2(k)), (f, c)
