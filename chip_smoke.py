@@ -2230,8 +2230,8 @@ def phase_probes() -> dict:
     its bound and its visit bit-equal given that product) and given its
     bound (M1, M3 and M6 by the pipe that limits them, M4 and M5 by their
     operations or the fewest L1 wavefronts their loads need, the old bound
-    beside); M3's and M6's rows under 0.05 ms, M4's and M5's under 1 ms
-    also carry the device's own time.  M4, M5 and M7 charge a root and 1/a at the M1
+    beside); M3's and M6's rows under 0.05 ms, M1's, M4's and M5's under
+    1 ms also carry the device's own time.  M4, M5 and M7 charge a root and 1/a at the M1
     weights measured here."""
     from raytracers_tpu_torch.probes import microbench as mb
     from raytracers_tpu_torch.probes import microbench_mxuquad as mq

@@ -64,21 +64,30 @@
 // visit_pipes), which bound it above its FP32 operations.
 //
 // SASS (cuobjdump -sass of the build, CUDA 12.8; probes/microbench.py
-// sass_counts, counts of every kernel in docs/MICROBENCH_H100.json): M1's
-// 8-stream loop is unrolled 8 times, 64 steps a pass, and holds per step
-//   mul_add  1 FMUL + 1 FADD (73 FMUL, 89 FADD in the kernel: the body, the
-//            remainder loop, the set-up and the sum), no FFMA;
-//   fma      1 FFMA (72 in the kernel), no FMUL or FADD in the loop;
+// sass_counts, counts of every kernel in docs/MICROBENCH_H100.json; the
+// main loops by probes/m1_turns.py loop_sass, docs/M1_TURNS_H100.json):
+// M1's FP32 loops are unrolled 64 times and its MUFU loops 8, and hold per
+// step
+//   mul_add  1 FMUL + 1 FADD (521 FMUL, 537 FADD in the 8-stream kernel:
+//            the body, the remainder loop, the set-up and the sum), no
+//            FFMA; at one stream 131 instructions a pass, 128 of them FP32;
+//   fma      1 FFMA (520 in the 8-stream kernel), no FMUL or FADD in the
+//            loop; at 4 and 8 streams FFMA Ra, R4.reuse, Ra, R3.reuse (m
+//            and d from the reuse cache); at one stream FFMA R6, R6, UR7,
+//            R3 (m in a uniform register that ULDC fills from c[0x3][0x0]),
+//            67 instructions a pass, 64 of them FFMA, where the parent's
+//            FFMA R4, R0, R4, R3 read three registers, two in one bank;
 //   sqrt     1 MUFU.RSQ, 2 FMUL.FTZ, 2 FFMA, an integer range test and a
 //            branch to the slow-path call (73 MUFU, 147 FMUL, 147 FFMA,
 //            72 CALL);
-//   div      1 MUFU.RCP, 5 FFMA, 1 FCHK and a branch (73 MUFU, 369 FFMA,
+//   div      1 MUFU.RCP, 5 FFMA, 1 FCHK and a branch (74 MUFU, 372 FFMA,
 //            72 FCHK, 72 CALL);
 //   1/x      1 MUFU.RCP, 2 FFMA, 1 FADD.FTZ, a range test and a branch
-//            (76 MUFU, 149 FFMA, 74 FADD.FTZ, 72 CALL).
+//            (76 MUFU, 151 FFMA, 89 FADD, 72 CALL).
 // The MUFU unit issues 16 lanes a cycle an SM against the FP32 pipes' 128,
 // so a root or a reciprocal costs about 8 multiply-equivalents before its
-// refinement; M1 measures 8.84 and 8.77, and 16.39 for a general division.
+// refinement; the record's weights are 8.78 and 8.71, and 16.27 for a
+// general division.
 //
 // M2's schedule.  FP32 pair and pairT (K = 8): a thread per (row, 8
 // columns) holds its lhs row and b's 8 x 8 block in registers, 137 FP32
@@ -125,6 +134,37 @@ constexpr int kRows = 128;   // the TPU probe's sublane rows (LANE)
 // ------------------------------------------------------------------ M1
 enum { kMulAdd = 0, kFma = 1, kSqrt = 2, kDiv = 3, kRcp = 4 };
 
+// M1's schedule: a thread an element, kStreams chains a thread, kFmaBlock
+// threads a block.  The step loop's counter, compare and branch take 3
+// issue slots a pass: the FP32 steps (FMUL + FADD, FFMA) are unrolled
+// kFmaUnroll times, so that a one-chain pass of FFMA holds 64 of its 67
+// instructions; the MUFU steps (sqrtf, 1/x, division) kMufuUnroll times,
+// since their pipe issues an eighth of FP32's and hides the control, while
+// a longer pass only grows the code (unrolled 32 times, sqrtf at 8 chains
+// took 1.20 -> 1.55 ms, docs/M1_TURNS_H100.json).  FFMA is the one step
+// with three source operands, and the register file's two banks serve
+// one read each an issue: where FFMA is alone in its chain (kFmaConstM)
+// its m comes from the constant bank (cFmaM; ptxas reads it into a uniform
+// register), so that it reads two registers; with several chains a warp's
+// consecutive FFMAs are independent and share m and d, which ptxas marks
+// .reuse.  m is formed from the salt on the device (fma_operand) and
+// copied to the constant bank on the launch's stream before each such
+// launch (about 4 us a call, which is why the other chain counts keep m in
+// a register); two streams launching it at once with different salts
+// would race.
+constexpr int kFmaBlock = 256;
+constexpr int kFmaUnroll = 64;
+constexpr int kMufuUnroll = 8;
+template <int kMode, int kStreams>
+constexpr bool kFmaConstM = kMode == kFma && kStreams == 1;
+
+__device__ float gFmaM;
+__constant__ float cFmaM;
+
+__global__ void fma_operand(const float* __restrict__ salt) {
+  gFmaM = __fadd_rn(__fmul_rn(salt[0], 0.5f), 0.9999f);
+}
+
 template <int kMode>
 __device__ __forceinline__ float step(float a, float m, float d) {
   if constexpr (kMode == kMulAdd) return __fadd_rn(__fmul_rn(a, m), d);
@@ -135,7 +175,7 @@ __device__ __forceinline__ float step(float a, float m, float d) {
 }
 
 template <int kMode, int kStreams>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kFmaBlock)
 fma_probe(const float* __restrict__ salt, float* __restrict__ out, int iters,
           int n) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -144,9 +184,10 @@ fma_probe(const float* __restrict__ salt, float* __restrict__ out, int iters,
   float acc[kStreams];
 #pragma unroll
   for (int u = 0; u < kStreams; ++u) acc[u] = __fadd_rn(base, (float)u);
-  const float m = __fadd_rn(__fmul_rn(base, 0.5f), 0.9999f);
+  const float m_reg = __fadd_rn(__fmul_rn(base, 0.5f), 0.9999f);
+  const float m = kFmaConstM<kMode, kStreams> ? cFmaM : m_reg;
   const float d = __fadd_rn(base, 1e-7f);
-#pragma unroll 8
+#pragma unroll (kMode == kMulAdd || kMode == kFma ? kFmaUnroll : kMufuUnroll)
   for (int i = 0; i < iters; ++i) {
 #pragma unroll
     for (int u = 0; u < kStreams; ++u) acc[u] = step<kMode>(acc[u], m, d);
@@ -157,20 +198,32 @@ fma_probe(const float* __restrict__ salt, float* __restrict__ out, int iters,
   out[g] = s;
 }
 
+template <int kMode, int kStreams>
+int launch_fma_chains(const float* salt, float* out, int iters, int n,
+                      cudaStream_t st) {
+  if constexpr (kFmaConstM<kMode, kStreams>) {
+    fma_operand<<<1, 1, 0, st>>>(salt);
+    void* m = nullptr;
+    cudaError_t rc = cudaGetSymbolAddress(&m, gFmaM);
+    if (rc == cudaSuccess)
+      rc = cudaMemcpyToSymbolAsync(cFmaM, m, sizeof(float), 0,
+                                   cudaMemcpyDeviceToDevice, st);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  fma_probe<kMode, kStreams><<<(n + kFmaBlock - 1) / kFmaBlock, kFmaBlock, 0,
+                               st>>>(salt, out, iters, n);
+  return 0;
+}
+
 template <int kMode>
 int launch_fma(int streams, const float* salt, float* out, int iters, int n,
                cudaStream_t st) {
-  const int blocks = (n + 255) / 256;
   switch (streams) {
-    case 1: fma_probe<kMode, 1><<<blocks, 256, 0, st>>>(salt, out, iters, n);
-      break;
-    case 4: fma_probe<kMode, 4><<<blocks, 256, 0, st>>>(salt, out, iters, n);
-      break;
-    case 8: fma_probe<kMode, 8><<<blocks, 256, 0, st>>>(salt, out, iters, n);
-      break;
+    case 1: return launch_fma_chains<kMode, 1>(salt, out, iters, n, st);
+    case 4: return launch_fma_chains<kMode, 4>(salt, out, iters, n, st);
+    case 8: return launch_fma_chains<kMode, 8>(salt, out, iters, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return 0;
 }
 
 // ------------------------------------------------------------------ M2

@@ -531,6 +531,16 @@ def fma_pipes(n, streams, iters, mode):
     return counts
 
 
+def fma_issue_share(fp32: int, other: int, fp32_cycles: float = 1) -> float:
+    """The share of the FP32 pipe a pass of M1's step loop can reach where a
+    scheduler issues one warp instruction a cycle: ``fp32`` FP32
+    instructions a pass, each taking ``fp32_cycles`` issue cycles (2 where
+    an FFMA reads three registers of the register file's two banks and no
+    reuse serves one), and ``other`` instructions a pass (the counter, the
+    compare and the branch), one cycle each."""
+    return fp32 / (fp32_cycles * fp32 + other)
+
+
 def fchk_lanes_per_cycle(m1) -> float:
     """FCHK's rate in lanes a cycle an SM, from M1's 8-stream division and
     1/x chains of one run (``run_m1``'s entries): the division's time over
@@ -676,9 +686,10 @@ def _timed(fn, min_window_ms=150.0, min_runs=3, max_runs=2000):
 
 # a window under this is near the host's cost of a call: such an entry also
 # carries the device's own time (``_device_entry``); M4's and M5's visits
-# carry it under a millisecond, where the host's cost is a few percent
+# and M1's chains carry it under a millisecond, where the host's cost is a
+# few percent
 DEVICE_MS_BELOW = 0.05
-VISIT_DEVICE_MS_BELOW = 1.0
+VISIT_DEVICE_MS_BELOW = M1_DEVICE_MS_BELOW = 1.0
 
 
 def _device_entry(fn, window_ms, below=DEVICE_MS_BELOW) -> dict:
@@ -789,16 +800,35 @@ def _entry(probe, name, label, ms, runs, work, plain_ms, max_err,
                 library_ms=library_ms, **extra)
 
 
+def fma_refs(dev) -> dict:
+    """{label: (``fma_plain``'s output, its ms)} of every M1 variant at the
+    TPU probe's size on ``dev``."""
+    salt = torch.tensor([SALT], dtype=F32, device=dev)
+    return {fma_label(mode, streams): _plain_timed(
+        lambda: fma_plain(salt, FMA_N, streams, iters, mode))
+        for mode in FMA_MODES for streams, iters in FMA_CASES}
+
+
 def run_m1(dev, clocks: ClockSampler | None, log=print):
+    """Every M1 variant at the TPU probe's size: timed, with the device's
+    own time under ``M1_DEVICE_MS_BELOW``, held against ``fma_plain``
+    (raises ``ProbeMismatch``), with its bound by pipe."""
+    return _run_m1(dev, clocks, log)
+
+
+def _run_m1(dev, clocks, log, refs=None):
+    """``run_m1``, the plain versions' outputs and times taken from
+    ``refs`` (``fma_refs``) where given: a probe of several builds in turns
+    forms them once."""
     salt = torch.tensor([SALT], dtype=F32, device=dev)
     out = []
     for mode in FMA_MODES:
         for streams, iters in FMA_CASES:
             label = fma_label(mode, streams)
-            ms, y, window, runs = _timed(
-                lambda: fma(salt, FMA_N, streams, iters, mode))
-            ref, plain_ms = _plain_timed(
-                lambda: fma_plain(salt, FMA_N, streams, iters, mode))
+            call = lambda: fma(salt, FMA_N, streams, iters, mode)  # noqa: E731
+            ms, y, window, runs = _timed(call)
+            ref, plain_ms = (refs[label] if refs else _plain_timed(
+                lambda: fma_plain(salt, FMA_N, streams, iters, mode)))
             err = _max_err(y, ref)
             tol = None
             if mode == "fma":
@@ -826,11 +856,13 @@ def run_m1(dev, clocks: ClockSampler | None, log=print):
                        watts=(statistics.median(w for _, w in
                                                 clocks.within(window))
                               if mhz else None),
-                       tolerance=tol)
-            log(f"[probe] {label}: {ms:.4f} ms ({runs} runs), "
-                f"{rate:.4e} lane ops/s = {rate / FP32_LANE_OPS_PER_S:.4f} "
-                f"of 33.5e12, {e['per_sm_per_cycle']} /SM/cycle at "
-                f"{clk} MHz; bound {e['bound_ms']:.4f} on {e['bound_row']} "
+                       tolerance=tol,
+                       **_device_entry(call, ms, M1_DEVICE_MS_BELOW))
+            log(f"[probe] {label}: {ms:.4f} ms ({runs} runs"
+                f"{_device_note(e)}), {rate:.4e} lane ops/s = "
+                f"{rate / FP32_LANE_OPS_PER_S:.4f} of 33.5e12, "
+                f"{e['per_sm_per_cycle']} /SM/cycle at {clk} MHz; bound "
+                f"{e['bound_ms']:.4f} on {e['bound_row']} "
                 f"({e['share']:.4f}; old {e['old_bound_ms']:.4f}, "
                 f"{e['old_share']:.4f}); plain {plain_ms:.2f} ms, err {err}")
             out.append(e)

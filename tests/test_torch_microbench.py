@@ -133,6 +133,129 @@ def test_fma_plain_fused_within_its_bound():
     assert np.abs(got - want).max() <= (iters + streams) * ULP * abs(want)
 
 
+@pytest.mark.parametrize("fp32,other,cycles,share", [
+    (16, 3, 1, 16 / 19),     # mul_add x1 at unroll 8: FMUL + FADD a step
+    (64, 3, 1, 64 / 67),     # fma x8 at unroll 8
+    (8, 3, 1, 8 / 11),       # fma x1 at unroll 8
+    (8, 3, 2, 8 / 19),       # the same, each FFMA two issue cycles
+    (32, 3, 1, 32 / 35)])    # fma x1 at unroll 32
+def test_fma_issue_share(fp32, other, cycles, share):
+    """The issue model of M1's step loop: FP32 instructions over the issue
+    cycles of a pass, one warp instruction a cycle a scheduler."""
+    assert mb.fma_issue_share(fp32, other, cycles) == pytest.approx(share)
+
+
+def _sass_listing():
+    """A ``cuobjdump -sass`` listing of one kernel in the form of CUDA 12's:
+    a remainder loop of one FFMA, then a main loop of four, each closed by
+    a backward branch to an address."""
+    rows = [(0x00, "LDC R1, c[0x0][0x28]"),
+            (0x10, "LDG.E R2, desc[UR4][R2.64]"),
+            (0x20, "FFMA R5, R5, R2, R3"),
+            (0x30, "IADD3 R4, R4, -0x1, RZ"),
+            (0x40, "ISETP.NE.AND P0, PT, R4, RZ, PT"),
+            (0x50, "@P0 BRA 0x20"),
+            (0x60, "FFMA R5, R5, c[0x3][0x0], R3"),
+            (0x70, "FFMA R5, R5, c[0x3][0x0], R3"),
+            (0x80, "FFMA R5, R5, c[0x3][0x0], R3.reuse"),
+            (0x90, "FFMA R5, R5, c[0x3][0x0], R3"),
+            (0xa0, "IADD3 R6, R6, 0x4, RZ"),
+            (0xb0, "ISETP.NE.AND P0, PT, R6, RZ, PT"),
+            (0xc0, "@P0 BRA 0x60"),
+            (0xd0, "STG.E desc[UR4][R8.64], R5"),
+            (0xe0, "EXIT"),
+            (0xf0, "BRA 0xf0")]
+    out = ["\tcode for sm_90a",
+           "\t\tFunction : _ZN4_GLOBAL9fma_probeILi1ELi1EEEvPKfPfii",
+           '\t.headerflags\t@"EF_CUDA_SM90"']
+    for addr, ins in rows:
+        pred, _, rest = ins.partition(" ") if ins.startswith("@") else (
+            "", "", ins)
+        out.append(f"        /*{addr:04x}*/   {pred:>15} {rest} ;"
+                   f"        /* 0x000fe20000000f00 */")
+        out.append(" " * 60 + "/* 0x000fca0000000000 */")
+    return "\n".join(out) + "\n"
+
+
+def test_m1_loop_pass_reads_the_main_loop():
+    """The SASS reader of ``m1_turns``: the loop a backward branch closes
+    with the most FP32 instructions; its FP32 forms with their registers
+    and .reuse flags, and the issue model's shares of the pass."""
+    from raytracers_tpu_torch.probes import m1_turns as tm
+    fns = tm.sass_functions(_sass_listing())
+    (fn, lines), = fns.items()
+    assert "fma_probeILi1ELi1E" in fn
+    p = tm.loop_pass(lines)
+    assert (p["instructions"], p["fp32"], p["other"]) == (7, 4, 3)
+    assert p["fp32_forms"] == {"FFMA R5, R5, c[0x3][0x0], R3": 3,
+                               "FFMA R5, R5, c[0x3][0x0], R3.reuse": 1}
+    assert p["reuse"] == 1 and p["opcodes"]["BRA"] == 1
+    assert p["share_one_cycle"] == pytest.approx(4 / 7)
+    assert p["share_two_cycles"] == pytest.approx(4 / 11)
+    assert tm.loop_pass(lines[:3]) is None
+
+
+def test_m1_turns_side_builds_rewrite_one_line_each(tmp_path, monkeypatch):
+    """Each side build of ``m1_turns`` rewrites lines of
+    ``csrc/microbench.cu`` that occur there exactly once, and the rewritten
+    source reads back as the side's spec: the step loop unrolled 8, 16, 32
+    and 64 times; m from a register and from the constant bank at unroll 8
+    and at the change's; 128, 256 and 512 threads a block; the MUFU steps
+    unrolled 8 and 32 times."""
+    from raytracers_tpu_torch.probes import m1_turns as tm
+    from raytracers_tpu_torch.probes import turns
+    from raytracers_tpu_torch.render import _cuda
+    monkeypatch.setattr(turns, "OUT_DIR", tmp_path)
+    text = _cuda.source("microbench").read_text()
+    ch = tm.change_spec()
+    specs = tm.side_specs()
+    seen = [ch, *specs.values()]
+    assert {s["unroll"] for s in seen} >= set(tm.SWEEP_UNROLL)
+    assert {s["block"] for s in seen} >= set(tm.SWEEP_BLOCK)
+    assert {s["mufu_unroll"] for s in seen} >= set(tm.SWEEP_MUFU_UNROLL)
+    for u in (8, ch["unroll"]):
+        assert {s["const_m"] for s in seen if s["unroll"] == u
+                and s["block"] == ch["block"]
+                and s["mufu_unroll"] == ch["mufu_unroll"]} == set(tm.SCOPES)
+    assert ch not in specs.values()
+    for name, spec in specs.items():
+        edits = tm.side_edits(spec)
+        assert edits
+        for old, _ in edits:
+            assert text.count(old) == 1, old
+            assert len([ln for ln in text.splitlines() if old in ln]) == 1
+        path = turns.rewrite("microbench", name, edits)
+        assert tm.change_spec(path.read_text()) == spec
+
+
+def test_m1_turns_rerecord(tmp_path, monkeypatch):
+    """--record puts the change's last turn in place of the record's M1
+    entries, before M2, and keeps the record's weights, this run's beside
+    them."""
+    from raytracers_tpu_torch.probes import m1_turns as tm
+    rec = json.loads(mb.RECORD.read_text())
+    m1 = [e for e in rec["entries"] if e["probe"] == "M1"]
+    turns = [dict(build=b, entries=[dict(e, ms=e["ms"] * (1 + i))
+                                    for e in m1])
+             for i, b in enumerate(tm.ORDER)]
+    path = tmp_path / "rec.json"
+    path.write_text(json.dumps(rec))
+    monkeypatch.setattr(mb, "sass_counts", lambda so: ({"k": {}}, ""))
+    tm.rerecord(path, dict(turns=turns, card="c", torch="t", cuda="u",
+                           script="s"), Path("x.so"), log=lambda *a: None)
+    out = json.loads(path.read_text())
+    last = max(i for i, b in enumerate(tm.ORDER) if b == "change")
+    new = [e for e in out["entries"] if e["probe"] == "M1"]
+    assert [e["ms"] for e in new] == [e["ms"] * (1 + last) for e in m1]
+    assert [e["probe"] for e in out["entries"]] == [e["probe"]
+                                                    for e in rec["entries"]]
+    assert out["mul_equivalents"] == rec["mul_equivalents"]
+    assert out["m1_run"]["mul_equivalents"] == mb.mul_equivalents(new)
+    assert out["m1_run"]["fchk_lanes_per_cycle"] == (
+        mb.fchk_lanes_per_cycle(new))
+    assert out["sass"] == {"k": {}} and out["m1_run"]["card"] == "c"
+
+
 # ---------------------------------------------------------------- M2
 
 @pytest.mark.parametrize("which", ["tpu", "seeded"])
@@ -828,6 +951,55 @@ def test_card_fma_equals_plain(cuda, mode, streams):
         assert float((y - ref).abs().max()) <= tol
     else:
         assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [1, 8])
+@pytest.mark.parametrize("mode", mb.FMA_MODES)
+def test_card_fma_crosses_the_unroll(cuda, mode, streams):
+    """Step counts on both sides of the step loop's unroll (a pass and
+    the remainder, ``m1_turns.change_spec``: the FP32 steps' and the MUFU
+    steps') and of a block, every variant against its plain version as
+    above."""
+    from raytracers_tpu_torch.probes import m1_turns as tm
+    spec = tm.change_spec()
+    s = torch.tensor([SALT], device=cuda)
+    n = 2 * spec["block"] + 5
+    unroll = spec["unroll" if mode in ("mul_add", "fma") else "mufu_unroll"]
+    for iters in (0, 1, unroll - 1, unroll, 2 * unroll + 3):
+        y = mb.fma(s, n, streams, iters, mode)
+        ref = mb.fma_plain(s, n, streams, iters, mode)
+        if mode == "fma":
+            tol = (iters + streams) * ULP * float(ref.abs().max())
+            assert float((y - ref).abs().max()) <= tol, iters
+        else:
+            assert torch.equal(y.view(torch.int32), ref.view(torch.int32)), (
+                iters)
+
+
+@pytest.mark.cuda
+def test_card_fma_loop_sass(cuda):
+    """The FP32 chains' main loop as the source builds it (``m1_turns``):
+    kFmaUnroll steps a pass, FMUL + FADD a step uncontracted and one FFMA
+    otherwise; where FFMA reads m from the constant bank (kFmaConstM) each
+    FFMA of the loop reads two registers, m from a uniform register that
+    ULDC filled from the bank."""
+    from raytracers_tpu_torch.probes import m1_turns as tm
+    from raytracers_tpu_torch.render import _cuda
+    _cuda.load("microbench")
+    spec = tm.change_spec()
+    loops = tm.loop_sass(_cuda.build_info["microbench"]["path"])
+    for (mode, streams), label in zip(tm.LOOP_KERNELS, loops):
+        p = loops[label]
+        per_step = 2 if mode == "mul_add" else 1
+        assert p["fp32"] == spec["unroll"] * streams * per_step, (label, p)
+        if mode == "fma" and (spec["const_m"] == "all" or (
+                spec["const_m"] == "x1" and streams == 1)):
+            for f in p["fp32_forms"]:
+                srcs = f.split(" ", 1)[1].split(", ")[1:]
+                assert sum(x.startswith("R") for x in srcs) == 2, (label, f)
+                assert any(x.startswith(("UR", "c[")) for x in srcs), (
+                    label, f)
 
 
 @pytest.mark.cuda
