@@ -50,8 +50,9 @@ a failed phase exits non-zero before the final line:
    on both routes in turns (the route rule's route, the other, the other,
    the rule's; ``[routes]`` lines), what an all-dead continuation costs on
    each route, counters, K1's bound, the thread-per-ray route's warp-lane
-   share of the visit work, the image against the plain version, and for
-   the soup the render at twice the side.
+   share of the visit work, the uncounted image against the plain version
+   (the counted render, and the render with K1's counters, bit-equal to
+   it), and for the soup the render at twice the side.
    rgbbox, irreg and plane-100k go through
    ``prepare_scene`` + ``render(mode="pallas")`` at 1000x1000, depth 50;
    the 1M-sphere soup through ``build_pallas_scene`` + ``render_pallas``
@@ -67,16 +68,19 @@ a failed phase exits non-zero before the final line:
    around one step (K1d once a phase, K2 once a segment), finite non-zero
    gradients, step times with CUDA events, per-launch K1d times on both
    routes in turns as phase 5 times them, K2 times, one
-   profiled step, the bounds, and the gradient against the plain engine on
-   the card; per K2 segment (``K2 segment`` lines) its time, bounces, atomic
-   row-adds (the model's, equal to the kernel's counters on the same
-   inputs), conflict factor (bounces per row-add) and ``index_add_``'s
-   time.  Then ``examples/pallas_gradients.py``'s port as a user runs it
-   (``[example]`` lines), at its defaults (64x64, depth 8) and at
-   1000x1000, depth 50: launches counted from zero around one run (K1d
-   and K2 once each, its engine being one segment), finite loss and
-   gradients, the run's host seconds, and at the defaults the gradients
-   against the plain engine on the card within this phase's bound;
+   profiled step, the bounds, and the uncounted step's image and gradients
+   against the plain engine on the card (the counted step's, and the
+   step's with the kernels' counters, too: images bit-equal, gradients
+   within the same bounds); per K2 segment (``K2 segment`` lines) its
+   time, bounces, atomic row-adds (the model's, equal to the kernel's
+   counters on the same inputs), conflict factor (bounces per row-add)
+   and ``index_add_``'s time.  Then ``examples/pallas_gradients.py``'s
+   port as a user runs it (``[example]`` lines), at its defaults (64x64,
+   depth 8) and at 1000x1000, depth 50: launches counted from zero around
+   one run (K1d and K2 once each, its engine being one segment), finite
+   loss and gradients, the run's host seconds, and at the defaults the
+   gradients against the plain engine on the card within this phase's
+   bound;
 7. the BVH path against its plain versions: ``build_bvh`` on the card
    field for field equal to the CPU build (rgbbox, irreg and plane at leaf
    8, the 1M-sphere soup of ``bench.py`` at leaf 128 and 8),
@@ -1001,15 +1005,20 @@ def _log_routes(what: str, turns: dict) -> None:
 
 
 def _counted(mk, fn):
-    """``fn()`` with K1's launch counts set to 0 just before and read just
-    after: its result, the launches and the launches by lanes per ray."""
+    """``fn()`` under the port's launch counts (``utils.trace.counting``
+    without ``stats``, so every kernel runs as on the main path): its
+    result, K1's launches, K1's launches by lanes per ray and K2's
+    launches."""
     import torch
-    mk.megakernel.launches = 0
-    for lanes in mk.megakernel.route_launches:
-        mk.megakernel.route_launches[lanes] = 0
-    out = fn()
+    from raytracers_tpu_torch.utils.trace import counting
+    with counting(stats=False) as c:
+        out = fn()
     torch.cuda.synchronize()
-    return out, mk.megakernel.launches, dict(mk.megakernel.route_launches)
+    n = c.read()
+    k1 = n.get("k1.launches", {})
+    return (out, k1.get("total", 0),
+            {lanes: k1.get(f"lanes{lanes}", 0) for lanes in mk.LANES},
+            n.get("k2.launches", {}).get("total", 0))
 
 
 def _check_routes(what: str, routes: dict, rule_lanes) -> None:
@@ -1063,6 +1072,7 @@ def phase_main_path(port, name: str, checker) -> dict:
     import torch
     from raytracers_tpu_torch.render import megakernel as mk
     from raytracers_tpu_torch.utils.timing import cuda_ms
+    from raytracers_tpu_torch.utils.trace import counting
     prep_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1073,9 +1083,16 @@ def phase_main_path(port, name: str, checker) -> dict:
     ps, n_phases, size = cell.ps, cell.n_phases, cell.size
     tile, block, schedule, prefix = cell.config
 
-    cell.render()                                               # warm-up
+    img = cell.render()                # warm-up, and the main path's image
     torch.cuda.synchronize()
-    img, launches, routes = _counted(mk, cell.render)
+    counted, launches, routes, _ = _counted(mk, cell.render)
+    with counting():                            # K1's counting variant
+        with_stats = cell.render()
+    for what, other in (("counted", counted),
+                        ("with K1's counters", with_stats)):
+        if not torch.equal(other, img):
+            raise SmokeError(f"{name}: the image {what} differs from the "
+                             "uncounted render's")
     if launches != n_phases:
         raise SmokeError(f"{name}: the main path launched K1 {launches} "
                          f"times, not {n_phases}")
@@ -1337,6 +1354,7 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
     from raytracers_tpu_torch.render import megakernel as mk
     from raytracers_tpu_torch.utils.timing import cuda_ms
+    from raytracers_tpu_torch.utils.trace import counting
     spheres, cam, ps, (tile, block, schedule, prefix) = _diff_scene(
         port, name, SIZE, cluster_width)
     n_phases = len(schedule) + 1
@@ -1347,11 +1365,14 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     step = lambda: _grads(f, spheres, cam)                      # noqa: E731
 
     step()                                                      # warm-up
-    torch.cuda.synchronize()
+    counted_step, k1d_launches, routes, k2_launches = _counted(mk, step)
+    launches = (k1d_launches, k2_launches)
+    with counting():                   # K1d's counting variant, K2's counters
+        stats_step = step()
+    # the main path's step, uncounted, and its peak
     torch.cuda.reset_peak_memory_stats()
-    rb.replay_bwd.launches = 0
-    (img, grads), k1d_launches, routes = _counted(mk, step)
-    launches = (k1d_launches, rb.replay_bwd.launches)
+    img, grads = step()
+    torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     if launches != (n_phases, n_phases):
         raise SmokeError(f"{name}: one fwd+bwd step launched K1d and K2 "
@@ -1419,6 +1440,23 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     if cam_rel > 1e-6:
         raise SmokeError(f"{name}: the camera gradient differs from the "
                          f"plain engine's by {cam_rel} of its max")
+    # the counted steps: the image bit-equal to the uncounted step's, the
+    # gradients within the same bounds of the plain engine's (K2's float32
+    # atomics change their last bits from run to run)
+    for what, (img_c, grads_c) in (("counted", counted_step),
+                                   ("with the kernels' counters",
+                                    stats_step)):
+        if not torch.equal(img_c.view(torch.int32), img.view(torch.int32)):
+            raise SmokeError(f"{name}: the fwd+bwd image {what} differs "
+                             "from the uncounted step's")
+        _sphere_grad_check(f"{name} ({what})", ps, p_k2, n_phases,
+                           grads_c[:3], grads_p[:3])
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(grads_c[3:], grads_p[3:]))
+        if rel > 1e-6:
+            raise SmokeError(f"{name} ({what}): the camera gradient differs "
+                             f"from the plain engine's by {rel} of its max")
+    del counted_step, stats_step
     share = sph_err / torch.where(bound > 0, bound, 1.0)
 
     res = dict(scene=name, clusters=ps.n_clusters,
@@ -1468,18 +1506,18 @@ def phase_example(port) -> list:
     engine on the card, within phase 6's summation-order bound."""
     import torch
     from raytracers_tpu_torch.examples import pallas_gradients as ex
-    from raytracers_tpu_torch.grad import replay_bwd as rb
     from raytracers_tpu_torch.render import megakernel as mk
     out = []
     for side, depth in EXAMPLE_RUNS:
         argv = ["--res", str(side), "--depth", str(depth)]
         ex.main(argv)                                           # warm-up
         torch.cuda.synchronize()
-        rb.replay_bwd.launches = 0
         t0 = time.perf_counter()
-        (loss, grads), k1d, routes = _counted(mk, lambda: ex.main(argv))
+        ex.main(argv)
+        torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = (k1d, rb.replay_bwd.launches)
+        (loss, grads), k1d, routes, k2 = _counted(mk, lambda: ex.main(argv))
+        launches = (k1d, k2)
         what = f"example {side}x{side} d{depth}"
         if launches != (1, 1):
             raise SmokeError(f"{what}: launched K1d and K2 {launches} "
@@ -1582,10 +1620,11 @@ class CheckedK3:
         self.paths = {"shared": 0, "global": 0}
 
     def __call__(self, scene, params, n_rays, tile, **kw):
-        before = dict(self.tr.traversal_kernel.path_launches)
-        out = self.tr.traversal_kernel(scene, params, n_rays, tile, **kw)
-        for path, n in self.tr.traversal_kernel.path_launches.items():
-            self.paths[path] += n - before[path]
+        from raytracers_tpu_torch.utils.trace import counting
+        with counting(stats=False) as c:
+            out = self.tr.traversal_kernel(scene, params, n_rays, tile, **kw)
+        for path in self.paths:
+            self.paths[path] += c.read()["k3.launches"].get(path, 0)
         ref, _ = self.tr.traversal_kernel_reference(scene, params, n_rays,
                                                     tile, **kw)
         self.max_abs_err = max(self.max_abs_err, _abs_err(out, ref, True))
@@ -1722,12 +1761,12 @@ def phase_bvh_main(port, checkers) -> list:
     also on the soup of its global-memory path).  Returns K3's results."""
     import torch
     from raytracers_tpu_torch.bvh.lbvh import build_bvh
-    from raytracers_tpu_torch.render import megakernel as mk
     from raytracers_tpu_torch.render import traversal as tr
     from raytracers_tpu_torch.render.megakernel import _ray_order, _to_image
     from raytracers_tpu_torch.render.traversal_model import thread_warp_share
     from raytracers_tpu_torch.render.api import prepare_scene, render
     from raytracers_tpu_torch.utils.timing import cuda_ms
+    from raytracers_tpu_torch.utils.trace import counting
     soup = port.scenes.random_spheres(BVH_SOUP[0], seed=BVH_SOUP[1])
     for leaf in BVH_LEAVES:
         fn = lambda leaf=leaf: build_bvh(soup, leaf_size=leaf)  # noqa: E731
@@ -1755,12 +1794,14 @@ def phase_bvh_main(port, checkers) -> list:
         if img.shape != (SIZE, SIZE) or img.dtype != torch.int32:
             raise SmokeError(f"{name}: bvh image {tuple(img.shape)} "
                              f"{img.dtype}")
-        mk.megakernel.launches = tr.traversal_kernel.launches = 0
-        ms = [cuda_ms(lambda: render(prep, SIZE, SIZE, mode="bvh",
-                                     max_depth=DEPTH), warmup=0, runs=1)
-              for _ in range(2)]
-        if (mk.megakernel.launches, tr.traversal_kernel.launches) != (0, 0):
-            raise SmokeError(f"{name}: render(mode='bvh') launched a kernel")
+        with counting(stats=False) as c:
+            ms = [cuda_ms(lambda: render(prep, SIZE, SIZE, mode="bvh",
+                                         max_depth=DEPTH), warmup=0, runs=1)
+                  for _ in range(2)]
+        launched = {"k1.launches", "k3.launches"} & set(c.read())
+        if launched:
+            raise SmokeError(f"{name}: render(mode='bvh') launched a kernel "
+                             f"({', '.join(sorted(launched))})")
         res = dict(what="render(mode='bvh')", scene=name, size=SIZE,
                    depth=DEPTH, leaf_size=8,
                    leaves=prep.bvh.n_leaves, warm_up_s=warm_s,
@@ -1776,10 +1817,10 @@ def phase_bvh_main(port, checkers) -> list:
                                            SIZE, max_depth=DEPTH)
         call()                                                  # warm-up
         torch.cuda.synchronize()
-        tr.traversal_kernel.launches = 0
-        img = call()
+        with counting(stats=False) as c:
+            img = call()
         torch.cuda.synchronize()
-        launches = tr.traversal_kernel.launches
+        launches = c.read().get("k3.launches", {}).get("total", 0)
         if launches != 1:
             raise SmokeError(f"{name}: one K3 render launched K3 "
                              f"{launches} times")
@@ -1997,7 +2038,7 @@ def _k1f_cell(port, default: Cell, mode: str, checker, default_img) -> dict:
 
     render()                                                    # warm-up
     torch.cuda.synchronize()
-    img, launches, routes = _counted(mk, render)
+    img, launches, routes, _ = _counted(mk, render)
     if launches != n_phases:
         raise SmokeError(f"{name} {mode}: the render launched K1 {launches} "
                          f"times, not {n_phases}")
@@ -2302,13 +2343,13 @@ def _train_one_rank(port, fb) -> dict:
     import torch.distributed as dist
     from raytracers_tpu_torch.examples.rgbbox_recovery import perturb
     from raytracers_tpu_torch.geometry import Spheres
-    from raytracers_tpu_torch.grad import replay_bwd as rb
     from raytracers_tpu_torch.grad.inverse import (adam, init_state,
                                                    make_train_step_pallas)
     from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
     from raytracers_tpu_torch.parallel.mesh import ray_mesh
     from raytracers_tpu_torch.render import megakernel as mk
     from raytracers_tpu_torch.utils.timing import cuda_ms
+    from raytracers_tpu_torch.utils.trace import counting
 
     truth, cam, ps, (tile, block, schedule, prefix) = _diff_scene(
         port, "rgbbox", SIZE)
@@ -2333,10 +2374,12 @@ def _train_one_rank(port, fb) -> dict:
         state = init_state(pert, adam(TRAIN_LR))
         step(state, cam, target)                              # warm-up
         torch.cuda.synchronize()
-        mk.megakernel.launches = rb.replay_bwd.launches = 0
-        state, loss = step(state, cam, target)
+        with counting(stats=False) as c:
+            state, loss = step(state, cam, target)
         torch.cuda.synchronize()
-        launches = (mk.megakernel.launches, rb.replay_bwd.launches)
+        counts = c.read()
+        launches = tuple(counts.get(f"{k}.launches", {}).get("total", 0)
+                         for k in ("k1", "k2"))
         if launches != (fb["k1d_launches"], fb["k2_launches"]):
             raise SmokeError(f"one train step launched K1d and K2 {launches} "
                              f"times; the fwd+bwd step of phase 6 "

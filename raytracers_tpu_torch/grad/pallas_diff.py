@@ -40,6 +40,7 @@ from ..render.megakernel import (_ray_order, _to_image, build_pallas_scene,
                                  megakernel, render_pallas_record,
                                  render_pallas_record_twophase)
 from ..render.tracer import primary_rays
+from ..utils.trace import counters, span, spanned
 from .diff_render import (EV_ABSORB, EV_BOUNCE, EV_INACTIVE, EV_MISS,
                           replay_paths)
 from .replay_bwd import N_CARRY, replay_bwd
@@ -77,6 +78,7 @@ class _KernelEngine:
         self.cluster_width = cluster_width
         self.fwd_kernel, self.bwd_kernel = fwd_kernel, bwd_kernel
 
+    @spanned("rt.grad.forward")
     def forward(self, spheres: Spheres, cam: Camera):
         scene = build_pallas_scene(spheres, cluster_width=self.cluster_width)
         kw = dict(max_depth=self.max_depth, tile=self.tile, block=self.block,
@@ -106,6 +108,7 @@ class _KernelEngine:
         return (gpad.reshape(3, hp // bh, bh, wp // bw, bw)
                 .permute(0, 1, 3, 2, 4).reshape(3, n_rays))
 
+    @spanned("rt.grad.backward")
     def backward(self, res, spheres: Spheres, cam: Camera, g):
         aux, order = res
         w, h = self.width, self.height
@@ -123,44 +126,57 @@ class _KernelEngine:
 
         # the image cotangent in each segment's ray order: the poskeys' low
         # bits are the source positions of each boundary's sort
-        gseg = [self._gflat(g, Rp)]
-        for j in range(m):
-            pos, B = poskeys[j] & _POS_MASK, prefix(j)
-            if B is None:
-                gseg.append(gseg[-1][:, pos])
-            else:
-                gseg.append(torch.cat([gseg[-1][:, pos[:B]],
-                                       gseg[-1][:, B:]], 1))
-        tab = carry = cotray = None
+        with span("rt.reorder"):
+            gseg = [self._gflat(g, Rp)]
+            for j in range(m):
+                pos, B = poskeys[j] & _POS_MASK, prefix(j)
+                if B is None:
+                    gseg.append(gseg[-1][:, pos])
+                else:
+                    gseg.append(torch.cat([gseg[-1][:, pos[:B]],
+                                           gseg[-1][:, B:]], 1))
+        c = counters()
+        tabs = []
+        carry = None
         for k in range(m, -1, -1):
-            gcot = torch.cat([gseg[k], carry if carry is not None
-                              else gseg[k].new_zeros(N_CARRY, Rp)])
-            tab_k, cot, _ = self.bwd_kernel(
-                ro.params, recs[k], pays[k], gcot, tile=self.tile,
-                block_tiled=(k == 0 and self.block is not None),
-                state_rows=None if k == 0 else states[k - 1],
-                reduce_slots=S)
-            tab = tab_k if tab is None else tab + tab_k
+            with span(f"rt.segment{k}"):
+                gcot = torch.cat([gseg[k], carry if carry is not None
+                                  else gseg[k].new_zeros(N_CARRY, Rp)])
+                tab_k, cot, _ = self.bwd_kernel(
+                    ro.params, recs[k], pays[k], gcot, tile=self.tile,
+                    block_tiled=(k == 0 and self.block is not None),
+                    state_rows=None if k == 0 else states[k - 1],
+                    reduce_slots=S)
+            if c is not None:
+                c.add("k2.bounces", (recs[k] >= 0).sum(), f"segment{k}")
+            tabs.append(tab_k)
             if k == 0:
-                cotray = cot
                 break
             # back across boundary k-1: the ray at position i of segment k
             # came from position pos[i] of segment k-1
-            pos, B = (poskeys[k - 1] & _POS_MASK).long(), prefix(k - 1)
-            carry = cot.clone() if B is not None else torch.empty_like(cot)
-            if B is None:
-                carry[:, pos] = cot
-            else:
-                carry[:, pos[:B]] = cot[:, :B]
+            with span(f"rt.carry{k - 1}"):
+                pos, B = (poskeys[k - 1] & _POS_MASK).long(), prefix(k - 1)
+                carry = (cot.clone() if B is not None
+                         else torch.empty_like(cot))
+                if B is None:
+                    carry[:, pos] = cot
+                else:
+                    carry[:, pos[:B]] = cot[:, :B]
 
-        n = spheres.center.shape[0]
-        ordv = order.reshape(-1).long()
-        tgt = torch.where(ordv >= 0, ordv, n)                # padding: dropped
-        gtab = tab.new_zeros(n + 1, 7).index_add_(0, tgt, tab)[:n]
-        gs = (gtab[:, 0:3].contiguous(), gtab[:, 3].contiguous(),
-              gtab[:, 4:7].contiguous())
-        rays = _to_image(ro, cotray, w, h).reshape(6, -1)   # row-major
-        gcam = _camera_vjp(cam, w, h, rays[0:3].T, rays[3:6].T)
+        with span("rt.scatter"):
+            # the segments' tables summed deepest first
+            tab = tabs[0]
+            for tab_k in tabs[1:]:
+                tab = tab + tab_k
+            n = spheres.center.shape[0]
+            ordv = order.reshape(-1).long()
+            tgt = torch.where(ordv >= 0, ordv, n)            # padding: dropped
+            gtab = tab.new_zeros(n + 1, 7).index_add_(0, tgt, tab)[:n]
+            gs = (gtab[:, 0:3].contiguous(), gtab[:, 3].contiguous(),
+                  gtab[:, 4:7].contiguous())
+        with span("rt.camera"):
+            rays = _to_image(ro, cot, w, h).reshape(6, -1)  # row-major
+            gcam = _camera_vjp(cam, w, h, rays[0:3].T, rays[3:6].T)
         return gs, gcam
 
 

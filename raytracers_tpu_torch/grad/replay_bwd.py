@@ -44,6 +44,7 @@ import torch
 from ..render.megakernel import _gen_rays, _ptr
 from ..render.ray_math import (EPS, SKY_K, bounce, key_floor, quad, search_m,
                                sky)
+from ..utils.trace import counters as _counters, stats_on
 from ..vec import sqrt
 
 N_GCOT = 12        # image cotangent (3) + incoming carry (9)
@@ -85,13 +86,14 @@ def replay_bwd(params, rec, pay, gcot, *, tile: int,
     arguments and results).
 
     A CPU tensor takes ``replay_bwd_reference``; a CUDA tensor launches the
-    CUDA kernel on the current stream, without synchronising, and counts the
-    launch in ``replay_bwd.launches``.  The kernel sums each warp's bounces
-    on one slot in registers and adds each sum into the slot table with
-    float32 atomics, so the table's last bits change from run to run; every
-    other output is bit-equal to the plain version's.  ``counters=True``
-    also returns the launch's ``COUNTERS``; the plain version has none, so
-    it raises on the CPU."""
+    CUDA kernel on the current stream, without synchronising, and under
+    ``utils.trace.counting()`` counts the launch in ``k2.launches`` and, with
+    ``stats``, its ``COUNTERS`` in ``k2.row_adds`` and
+    ``k2.warp_iterations``.  The kernel sums each warp's bounces on one
+    slot in registers and adds each sum into the slot table with float32
+    atomics, so the table's last bits change from run to run; every other
+    output is bit-equal to the plain version's.  ``counters=True`` also returns the launch's ``COUNTERS``;
+    the plain version has none, so it raises on the CPU."""
     _check(params, rec, pay, gcot, state_rows, reduce_slots)
     if counters and rec.device.type != "cuda":
         raise ValueError("counters count the kernel's row-adds and warp "
@@ -116,8 +118,9 @@ def replay_bwd(params, rec, pay, gcot, *, tile: int,
         table = torch.zeros(reduce_slots, 7, **f32)
     cotray = torch.empty(N_CARRY if state_rows is not None else 6, n, **f32)
     fwd = torch.empty(3, n, **f32) if emit_fwd else None
+    c = _counters()
     cnt = (torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
-           if counters else None)
+           if counters or stats_on(c) else None)
     rc = fn(_ptr(params), _ptr(rec), _ptr(pay), _ptr(gcot), _ptr(state_rows),
             _ptr(scratch), _ptr(cot_step), _ptr(table), _ptr(cotray),
             _ptr(fwd), _ptr(cnt), D, n, tile, int(block_tiled),
@@ -125,12 +128,12 @@ def replay_bwd(params, rec, pay, gcot, *, tile: int,
     if rc != 0:
         raise RuntimeError("replay_bwd launch failed: "
                            + _cuda.error_string("replay_bwd", rc))
-    replay_bwd.launches += 1
+    if c is not None:
+        c.add("k2.launches", 1)
+        for name, v in zip(COUNTERS, cnt if stats_on(c) else ()):
+            c.add(f"k2.{name}", v)
     out = (cot_step if table is None else table), cotray, fwd
     return out + (cnt,) if counters else out
-
-
-replay_bwd.launches = 0
 
 
 def _replayed(o, d, f, a):

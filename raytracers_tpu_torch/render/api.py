@@ -14,6 +14,7 @@ from ..bvh import traverse
 from ..geometry import MAX_DEPTH, Camera, Spheres, camera
 from ..scenes import Scene
 from ..utils.platform import resolve_device
+from ..utils.trace import spanned
 from . import bruteforce
 from .megakernel import (PallasScene, build_pallas_scene, render_pallas,
                          render_pallas_record, render_pallas_twophase)
@@ -107,6 +108,7 @@ def _render_pallas(prepared: PreparedScene, height: int, width: int,
     return render_pallas(ps, prepared.cam, width, height, **kw)
 
 
+@spanned("rt.render")
 def render(prepared: PreparedScene, height: int, width: int,
            mode: str = "bvh", max_depth: int = MAX_DEPTH,
            chunk: int | None = None, phase1_depth: int | None = None,

@@ -60,6 +60,7 @@ import torch
 from ..bvh.lbvh import Clusters, build_clusters
 from ..bvh.morton import morton3d
 from ..geometry import MAX_DEPTH, SCENE_EPSILON, T_MAX, Camera, Spheres
+from ..utils.trace import counters, span, spanned, stats_on
 from ..vec import sqrt
 from .ray_math import bounce, quad, search_m, search_m_near, sky
 
@@ -74,6 +75,7 @@ _KRUN_INIT = _HIT_TH | (LANE - 1)
 
 N_STATE = 13   # ox oy oz dx dy dz lr lg lb rr rg rb active
 N_STATS = 3    # sphere rows tested, bounces run, AABB slab rows tested
+STAT_NAMES = ("slot_tests", "ray_bounces", "cull_rows")
 MAX_BLOCKS = 2048   # block unions the kernel holds in shared memory (48 KB)
 LANES = (1, 32)     # lanes per ray of the kernel's two routes
 
@@ -107,6 +109,7 @@ class PallasScene(NamedTuple):
         return self.sphT.shape[1]
 
 
+@spanned("rt.layout")
 def build_pallas_scene(sph: Spheres, sort_origin=None,
                        cull_rows: int | None = None,
                        cluster_width: int | None = None) -> PallasScene:
@@ -635,9 +638,9 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
     overrides it.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
-    kernel on the current stream, without synchronising, and counts the
-    launch in ``megakernel.launches`` and in ``megakernel.route_launches``
-    under its lanes per ray."""
+    kernel on the current stream, without synchronising, and under
+    ``utils.trace.counting()`` counts the launch in ``k1.launches`` by its
+    lanes per ray."""
     _check_launch(scene, params, n_rays, tile, block_tiled, state_in,
                   record_depth, record_pay, lane_groups)
     _check_lanes(_lanes)
@@ -683,8 +686,9 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
     if rc != 0:
         raise RuntimeError("megakernel launch failed: "
                            + _cuda.error_string("megakernel", rc))
-    megakernel.launches += 1
-    megakernel.route_launches[lanes] += 1
+    c = counters()
+    if c is not None:
+        c.add("k1.launches", 1, f"lanes{lanes}")
     out = state_out if emit_state else packed
     if record_depth is not None:
         return out, stats, rec, pay
@@ -693,10 +697,6 @@ def megakernel(scene: PallasScene, params: torch.Tensor, n_rays: int,
 
 def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
-megakernel.launches = 0
-megakernel.route_launches = {k: 0 for k in LANES}
 
 
 # ---------------------------------------------------------------------------
@@ -710,6 +710,7 @@ class _RayOrder(NamedTuple):
     padded: tuple            # (hp, wp) for block tiles
 
 
+@spanned("rt.rays")
 def _ray_order(cam: Camera, width, height, tile, block, row0, total_height,
                depth) -> _RayOrder:
     """Params vector (pallas_kernel.py:1097-1135) and padded ray count:
@@ -759,9 +760,20 @@ def _count_sum(x: torch.Tensor) -> int:
 
 
 def _stats_dict(stats: torch.Tensor) -> dict:
-    return dict(slot_tests=_count_sum(stats[0]),
-                ray_bounces=_count_sum(stats[1]),
-                cull_rows=_count_sum(stats[2]))
+    return {name: _count_sum(s) for name, s in zip(STAT_NAMES, stats)}
+
+
+def _count_phase(c, k: int, n_rays: int, live_in, stats):
+    """Phase k's launch into the counters ``c``: the rays it runs, those
+    live at its entry, and K1's per-ray counters summed, on the device,
+    where ``c`` ran K1's counting variant."""
+    part = f"phase{k}"
+    c.add("k1.rays_launched", n_rays, part)
+    c.add("k1.rays_live_in", live_in, part)
+    if not stats_on(c):
+        return
+    for name, s in zip(STAT_NAMES, stats.sum(dim=1, dtype=torch.int64)):
+        c.add(f"k1.{name}", s, part)
 
 
 def render_pallas(scene: PallasScene, cam: Camera, width: int, height: int,
@@ -781,10 +793,15 @@ def render_pallas(scene: PallasScene, cam: Camera, width: int, height: int,
     (its plain version, or a checking or timing wrapper)."""
     ro = _ray_order(cam, width, height, tile, block, row0, total_height,
                     max_depth)
-    out, stats = kernel(scene, ro.params, ro.n_rays, tile,
-                        block_tiled=block is not None,
-                        with_stats=with_stats, cull=cull, far_root=far_root,
-                        lane_groups=lane_groups)
+    c = counters()
+    with span("rt.phase0"):
+        out, stats = kernel(scene, ro.params, ro.n_rays, tile,
+                            block_tiled=block is not None,
+                            with_stats=with_stats or stats_on(c),
+                            cull=cull, far_root=far_root,
+                            lane_groups=lane_groups)
+    if c is not None:
+        _count_phase(c, 0, ro.n_rays, ro.n_rays, stats)
     img = _to_image(ro, out, width, height)
     return (img, _stats_dict(stats)) if with_stats else img
 
@@ -894,51 +911,61 @@ def render_pallas_twophase(scene: PallasScene, cam: Camera, width: int,
          and nt2 % seg_tiles == 0 and nt2 > seg_tiles else 1)
     prefs = _sort_prefixes(sort_prefix, len(schedule), Rp, t2)
     depths = list(schedule) + [max_depth - sum(schedule)]
+    c = counters()
     kw = dict(far_root=far_root, cull=cull, lane_groups=lane_groups,
-              with_stats=with_stats)
+              with_stats=with_stats or stats_on(c))
 
     state_in = acc_pix = idx = None
+    live_in = Rp
     unpermute_segments = S
     phase_stats = []
     for k, depth in enumerate(depths):
-        params = ro.params.clone()
-        params[13:14].fill_(depth)      # on the device, without a host copy
-        st, stats = kernel(scene, params, Rp, tile if k == 0 else t2,
-                           block_tiled=(k == 0 and block is not None),
-                           state_in=state_in, emit_state=True,
-                           force_occl=occl_cont and k > 0, **kw)
+        with span(f"rt.phase{k}"):
+            params = ro.params.clone()
+            params[13:14].fill_(depth)  # on the device, without a host copy
+            st, stats = kernel(scene, params, Rp, tile if k == 0 else t2,
+                               block_tiled=(k == 0 and block is not None),
+                               state_in=state_in, emit_state=True,
+                               force_occl=occl_cont and k > 0, **kw)
         if with_stats:
             phase_stats.append(stats)
-        pix = pack_pix(st[9], st[10], st[11])
+        if c is not None:
+            _count_phase(c, k, Rp, live_in, stats)
         if k == len(schedule):
             break
-        # rays that died this phase hold their colour in rr/rg/rb (zero for
-        # the others), so a plain add takes each pixel from one phase
-        acc_pix = pix if acc_pix is None else acc_pix + pix
-        if idx is None:
-            idx = torch.arange(Rp, dtype=torch.int32, device=dev)
-        dead = (st[12] <= 0.0).to(torch.int32)
-        if coherent:
-            key = _coherent_key(st, dead, scene)
-            perm = torch.sort(key, stable=True).indices
-            idx = idx[perm]
-            key_sorted = key[perm]
-        else:
-            key = (dead << 30) | idx
-            perm = _bsort_perm(key, prefs[k], S)
-            key_sorted = key[perm]
-            idx = key_sorted & ((1 << 30) - 1)
-            if prefs[k] is not None and 0 < prefs[k] < Rp:
-                unpermute_segments = 1      # rays left their segments
-        acc_pix = acc_pix[perm]
-        live = ((key_sorted >> 30) == 0).to(torch.float32)
-        state_in = torch.cat([st[:9, perm],
-                              st.new_zeros(3, Rp), live[None]])
+        with span(f"rt.boundary{k}"):
+            # rays that died this phase hold their colour in rr/rg/rb (zero
+            # for the others), so a plain add takes each pixel from one phase
+            pix = pack_pix(st[9], st[10], st[11])
+            acc_pix = pix if acc_pix is None else acc_pix + pix
+            if idx is None:
+                idx = torch.arange(Rp, dtype=torch.int32, device=dev)
+            dead = (st[12] <= 0.0).to(torch.int32)
+            if coherent:
+                key = _coherent_key(st, dead, scene)
+                perm = torch.sort(key, stable=True).indices
+                idx = idx[perm]
+                key_sorted = key[perm]
+            else:
+                key = (dead << 30) | idx
+                perm = _bsort_perm(key, prefs[k], S)
+                key_sorted = key[perm]
+                idx = key_sorted & ((1 << 30) - 1)
+                if prefs[k] is not None and 0 < prefs[k] < Rp:
+                    unpermute_segments = 1      # rays left their segments
+            acc_pix = acc_pix[perm]
+            live = ((key_sorted >> 30) == 0).to(torch.float32)
+            state_in = torch.cat([st[:9, perm],
+                                  st.new_zeros(3, Rp), live[None]])
+        if c is not None:
+            live_in = torch.count_nonzero(live)
     # merge the last phase's pixels with the earlier ones, then put them
     # back in ray order by sorting on the original ray id
-    merged = torch.where(state_in[12] > 0.0, pix, acc_pix)
-    unperm = _bsort_perm(idx, None, unpermute_segments)
-    img = _to_image(ro, merged[unperm], width, height)
+    with span("rt.unpermute"):
+        pix = pack_pix(st[9], st[10], st[11])
+        merged = torch.where(state_in[12] > 0.0, pix, acc_pix)
+        unperm = _bsort_perm(idx, None, unpermute_segments)
+        img = _to_image(ro, merged[unperm], width, height)
     if not with_stats:
         return img
     per = [_stats_dict(s) for s in phase_stats]
@@ -970,10 +997,15 @@ def render_pallas_record(scene: PallasScene, cam: Camera, width: int,
     replay.  ``far_root``, ``cull``, ``block`` and ``kernel`` as in
     ``render_pallas``."""
     ro = _ray_order(cam, width, height, tile, block, 0.0, None, max_depth)
-    st, _, rec, pay = kernel(scene, ro.params, ro.n_rays, tile,
-                             block_tiled=block is not None, emit_state=True,
-                             record_depth=max_depth, record_pay=with_pay,
-                             cull=cull, far_root=far_root)
+    c = counters()
+    stat_kw = dict(with_stats=True) if stats_on(c) else {}
+    with span("rt.phase0"):
+        st, stats, rec, pay = kernel(
+            scene, ro.params, ro.n_rays, tile, block_tiled=block is not None,
+            emit_state=True, record_depth=max_depth, record_pay=with_pay,
+            cull=cull, far_root=far_root, **stat_kw)
+    if c is not None:
+        _count_phase(c, 0, ro.n_rays, ro.n_rays, stats)
     colours = _to_image(ro, st[9:12], width, height).permute(1, 2, 0)
     record = _to_image(ro, rec, width, height).reshape(max_depth, -1)
     if with_pay:
@@ -1032,36 +1064,49 @@ def render_pallas_record_twophase(scene: PallasScene, cam: Camera,
     depths = list(schedule) + [max_depth - sum(schedule)]
     pos = torch.arange(Rp, dtype=torch.int32, device=dev)
 
+    c = counters()
+    stat_kw = dict(with_stats=True) if stats_on(c) else {}
+
     recs, pays, states, poskeys = [], [], [], []
     idx = pos                 # each ray's original id, in the current order
     acc = state_in = None     # dead rays' colours (3, Rp); next phase's input
+    live_in = Rp
     for k, depth in enumerate(depths):
-        st, _, rec, pay = kernel(scene, ro.params, Rp, tile,
-                                 block_tiled=(k == 0 and block is not None),
-                                 state_in=state_in, emit_state=True,
-                                 record_depth=depth, record_pay=True,
-                                 cull=cull, far_root=far_root)
+        with span(f"rt.phase{k}"):
+            st, stats, rec, pay = kernel(
+                scene, ro.params, Rp, tile,
+                block_tiled=(k == 0 and block is not None),
+                state_in=state_in, emit_state=True, record_depth=depth,
+                record_pay=True, cull=cull, far_root=far_root, **stat_kw)
+        if c is not None:
+            _count_phase(c, k, Rp, live_in, stats)
         recs.append(rec)
         pays.append(pay)
         if k == len(schedule):
             break
-        # a ray dies in one phase; continuations start from zeroed rr/rg/rb,
-        # so the sum takes each ray's colour from its phase exactly
-        acc = st[9:12] if acc is None else acc + st[9:12]
-        key = ((st[12] <= 0.0).to(torch.int32) << 30) | pos
-        perm = _bsort_perm(key, prefs[k])
-        key_sorted = key[perm]
-        poskeys.append(key_sorted)
-        acc = acc[:, perm]
-        idx = idx[perm]
-        states.append(st[:9, perm])
-        live = ((key_sorted >> 30) == 0).to(torch.float32)
-        state_in = torch.cat([states[-1], st.new_zeros(3, Rp), live[None]])
+        with span(f"rt.boundary{k}"):
+            # a ray dies in one phase; continuations start from zeroed
+            # rr/rg/rb, so the sum takes each ray's colour from its phase
+            acc = st[9:12] if acc is None else acc + st[9:12]
+            key = ((st[12] <= 0.0).to(torch.int32) << 30) | pos
+            perm = _bsort_perm(key, prefs[k])
+            key_sorted = key[perm]
+            poskeys.append(key_sorted)
+            acc = acc[:, perm]
+            idx = idx[perm]
+            states.append(st[:9, perm])
+            live = ((key_sorted >> 30) == 0).to(torch.float32)
+            state_in = torch.cat([states[-1], st.new_zeros(3, Rp),
+                                  live[None]])
+        if c is not None:
+            live_in = torch.count_nonzero(live)
     # the last phase's colours where its rays were live at entry, then back
     # to ray order by sorting on the original ray id
-    merged = torch.where(state_in[12] > 0.0, st[9:12], acc)
-    col = merged[:, torch.sort(idx).indices]
-    colours = _to_image(ro, col, width, height).permute(1, 2, 0).contiguous()
+    with span("rt.unpermute"):
+        merged = torch.where(state_in[12] > 0.0, st[9:12], acc)
+        col = merged[:, torch.sort(idx).indices]
+        colours = (_to_image(ro, col, width, height).permute(1, 2, 0)
+                   .contiguous())
     return colours, dict(recs=recs, pays=pays, states=states,
                          poskeys=poskeys, schedule=tuple(schedule),
                          sort_prefix_rows=prefs)

@@ -45,6 +45,7 @@ import torch
 
 from ..bvh.lbvh import build_bvh
 from ..geometry import MAX_DEPTH, SCENE_EPSILON, T_MAX, T_MIN, Camera, Spheres
+from ..utils import trace
 from ..vec import sqrt
 from .megakernel import _gen_rays, _ptr, _ray_order, _to_image, pack_pix
 from .ray_math import sky
@@ -396,12 +397,12 @@ def traversal_kernel(scene: TraversalScene, params: torch.Tensor,
     or ``block_tiled``) to ``max_depth`` bounces -> packed (n_rays,) int32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
-    kernel on the current stream, without synchronising, and counts the
-    launch in ``traversal_kernel.launches`` and by path (``"shared"`` or
-    ``"global"``, the rule ``geometry_in_shared``) in
-    ``traversal_kernel.path_launches``.  ``counters``, an int64
-    (len(COUNTERS),) tensor on the card, gets the launch's warp rounds
-    added (the kernel's own; the plain version has no warps)."""
+    kernel on the current stream, without synchronising, and under
+    ``utils.trace.counting()`` counts the launch in ``k3.launches`` by path
+    (``shared`` or ``global``, the rule ``geometry_in_shared``).
+    ``counters``, an int64 (len(COUNTERS),) tensor on the card, gets the
+    launch's warp rounds added (the kernel's own; the plain version has no
+    warps)."""
     _check(scene, params, n_rays, tile, n_clusters, leaf_size, max_depth)
     dev = params.device
     if counters is not None and (
@@ -434,13 +435,10 @@ def traversal_kernel(scene: TraversalScene, params: torch.Tensor,
     if rc != 0:
         raise RuntimeError("traversal launch failed: "
                            + _cuda.error_string("traversal", rc))
-    traversal_kernel.launches += 1
-    traversal_kernel.path_launches["shared" if shared else "global"] += 1
+    c = trace.counters()
+    if c is not None:
+        c.add("k3.launches", 1, "shared" if shared else "global")
     return packed
-
-
-traversal_kernel.launches = 0
-traversal_kernel.path_launches = {"shared": 0, "global": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
 from raytracers_tpu_torch.render import megakernel as tmk
 from raytracers_tpu_torch.render import traversal as ttr
 from raytracers_tpu_torch.render.api import pallas_config, pallas_diff_config
+from raytracers_tpu_torch.utils.trace import counting
 
 pytestmark = pytest.mark.cuda
 SIZE = 64
@@ -109,14 +110,13 @@ def test_multi_phase_kernel_equals_plain(cuda, name):
 def test_launch_count_and_device_checks(cuda):
     ps, cam = _scene("rgbbox", cuda)
     params = tmk._ray_order(cam, SIZE, SIZE, 256, None, 0.0, None, 3).params
-    before = tmk.megakernel.launches
-    tmk.megakernel(ps, params, SIZE * SIZE, 256)
-    tmk.megakernel(ps, params, SIZE * SIZE, 256, emit_state=True)
-    assert tmk.megakernel.launches == before + 2
-    cpu_scene = tmk.PallasScene(*(f.cpu() for f in ps))
-    with pytest.raises(ValueError, match="sphT"):
-        tmk.megakernel(cpu_scene, params, SIZE * SIZE, 256)
-    assert tmk.megakernel.launches == before + 2
+    with counting(stats=False) as c:
+        tmk.megakernel(ps, params, SIZE * SIZE, 256)
+        tmk.megakernel(ps, params, SIZE * SIZE, 256, emit_state=True)
+        cpu_scene = tmk.PallasScene(*(f.cpu() for f in ps))
+        with pytest.raises(ValueError, match="sphT"):
+            tmk.megakernel(cpu_scene, params, SIZE * SIZE, 256)
+    assert c.read()["k1.launches"]["total"] == 2
 
 
 @pytest.mark.parametrize("blocked", [False, True])
@@ -218,10 +218,10 @@ def test_replayed_colours_equal_record_colours(cuda, name):
         block=(16, 16))
     ro = tmk._ray_order(cam, SIZE, SIZE, 256, (16, 16), 0.0, None, 50)
     gcot = torch.zeros(trb.N_GCOT, ro.n_rays, device=cuda)
-    before = trb.replay_bwd.launches
-    _, _, fwd = trb.replay_bwd(ro.params, rec, pay, gcot, tile=256,
-                               block_tiled=True, emit_fwd=True)
-    assert trb.replay_bwd.launches == before + 1
+    with counting(stats=False) as c:
+        _, _, fwd = trb.replay_bwd(ro.params, rec, pay, gcot, tile=256,
+                                   block_tiled=True, emit_fwd=True)
+    assert c.read()["k2.launches"] == {"total": 1}
     rep = tmk._to_image(ro, fwd, SIZE, SIZE).permute(1, 2, 0)
     assert torch.equal(_bits(rep.contiguous()), _bits(col))
 
@@ -338,9 +338,9 @@ def test_traversal_kernel_equals_plain(cuda, name, far_root, block, depth):
     cam = tgeo.camera(sc.look_from, sc.look_at, (0., 1., 0.), sc.fov, 1.0,
                       device=cuda)
     kw = dict(max_depth=depth, far_root=far_root, block=block)
-    before = ttr.traversal_kernel.launches
-    img = ttr.render_traversal(scene, C, K, cam, SIZE, SIZE, **kw)
-    assert ttr.traversal_kernel.launches == before + 1
+    with counting(stats=False) as c:
+        img = ttr.render_traversal(scene, C, K, cam, SIZE, SIZE, **kw)
+    assert c.read()["k3.launches"]["total"] == 1
     ref = ttr.traversal_reference(scene, C, K, cam, SIZE, SIZE, **kw)
     torch.cuda.synchronize()
     assert img.device.type == "cuda" and torch.equal(img, ref)

@@ -24,6 +24,7 @@ from raytracers_tpu_torch import scenes as tscenes
 from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
 from raytracers_tpu_torch.render import megakernel as tmk
 from raytracers_tpu_torch.render.api import pallas_config, pallas_diff_config
+from raytracers_tpu_torch.utils.trace import counting
 
 CPU = "cpu"
 SIZE = 64
@@ -178,9 +179,10 @@ class _Route:
         self.lanes, self.launches = lanes, 0
 
     def __call__(self, *args, **kw):
-        before = tmk.megakernel.route_launches[self.lanes]
-        out = tmk.megakernel(*args, _lanes=self.lanes, **kw)
-        assert tmk.megakernel.route_launches[self.lanes] == before + 1
+        with counting() as c:
+            out = tmk.megakernel(*args, _lanes=self.lanes, **kw)
+        assert c.read()["k1.launches"] == {"total": 1,
+                                           f"lanes{self.lanes}": 1}
         ref = tmk.megakernel_reference(*args, **kw)
         torch.cuda.synchronize()
         assert torch.equal(_bits(out[0]), _bits(ref[0]))

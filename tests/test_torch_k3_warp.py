@@ -27,6 +27,7 @@ from raytracers_tpu_torch import scenes as tscenes
 from raytracers_tpu_torch.render import traversal as ttr
 from raytracers_tpu_torch.render import traversal_model as tm
 from raytracers_tpu_torch.render.megakernel import _ray_order
+from raytracers_tpu_torch.utils.trace import counting
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -317,12 +318,10 @@ def test_kernel_equals_plain(cuda, name, C, K, far_root):
         for depth in (1, 50):
             kw = dict(max_depth=depth, far_root=far_root, block=block,
                       tile=100)
-            before = dict(ttr.traversal_kernel.path_launches)
-            img = ttr.render_traversal(scene, C, K, cam, 30, 30,
-                                       kernel=kernel, **kw)
-            after = ttr.traversal_kernel.path_launches
-            assert after[path] == before[path] + 1
-            assert sum(after.values()) == sum(before.values()) + 1
+            with counting() as c:
+                img = ttr.render_traversal(scene, C, K, cam, 30, 30,
+                                           kernel=kernel, **kw)
+            assert c.read()["k3.launches"] == {"total": 1, path: 1}
             ref = ttr.traversal_reference(scene, C, K, cam, 30, 30, **kw)
             torch.cuda.synchronize()
             assert img.device.type == "cuda"
