@@ -12,6 +12,15 @@ a failed phase exits non-zero before the final line:
    them, then every kernel of ``raytracers_tpu_torch/csrc`` compiled for
    sm_90a (one nvcc each, all started together), with the build times and
    ptxas's register reports;
+1b. the scene layout (``[layout]`` lines): ``build_pallas_scene`` on the
+   card (``csrc/layout.cu``: the Morton codes, one stable sort, the pack)
+   against the plain build on the card, for rgbbox, irreg, plane-100k and
+   the 1M soup, front to back and unsorted: every table equal (bit for
+   bit, but a zero of the boxes whose sign alone differs), the launches by
+   stage counted, both builds timed in turns (the host's call, the
+   synchronised end, CUDA events; medians of LAYOUT_RUNS), the soup's
+   kernel build, unsorted as phase 5 renders it, no slower than the plain
+   one;
 2. K1 against its plain version: rgbbox and irreg at 200x200 through
    ``render_pallas`` (scanline and block tiles, depth 1 and 50: mode K1a)
    and ``render_pallas_twophase`` with the scene's class schedule and sort
@@ -46,41 +55,40 @@ a failed phase exits non-zero before the final line:
    fails; the oracle's render times on the host CPU, named, printed after
    phase 5 beside the card's ``render_ms``;
 5. main path, render, for each cell: launches counted from zero around one
-   render (and by route), render times with CUDA events, per-phase K1 times
-   on both routes in turns (the route rule's route, the other, the other,
-   the rule's; ``[routes]`` lines), what an all-dead continuation costs on
-   each route, counters, K1's bound, the thread-per-ray route's warp-lane
-   share of the visit work, the uncounted image against the plain version
-   (the counted render, and the render with K1's counters, bit-equal to
-   it), and for the soup the render at twice the side.
-   rgbbox, irreg and plane-100k go through
-   ``prepare_scene`` + ``render(mode="pallas")`` at 1000x1000, depth 50;
-   the 1M-sphere soup through ``build_pallas_scene`` + ``render_pallas``
-   at 256x256, depth 5, tile 2048, blocks (8, 256), as ``bench.py``
-   renders it (the camera at (0, 0, 520) looking at the origin, fov 60).
-   Then one rgbbox render under ``utils.profiling.device_trace``
-   (``[profile]``): ``device_kernel_ms`` of the exported Chrome trace equal
-   to the per-kernel sums of the same session's device events, the
-   per-kernel times beside the card's name and power limit;
+   render (and by route; no layout launch), render times with CUDA events,
+   per-phase K1 times on both routes in turns (the route rule's route, the
+   other, the other, the rule's; ``[routes]`` lines), what an all-dead
+   continuation costs on each route, counters, K1's bound, the
+   thread-per-ray route's warp-lane share of the visit work, the uncounted
+   image against the plain version (the counted render, and the render with
+   K1's counters, bit-equal to it), and for the soup the render at twice
+   the side. rgbbox, irreg and plane-100k go through ``prepare_scene`` +
+   ``render(mode="pallas")`` at 1000x1000, depth 50; the 1M-sphere soup
+   through ``build_pallas_scene`` + ``render_pallas`` at 256x256, depth 5,
+   tile 2048, blocks (8, 256), as ``bench.py`` renders it (the camera at
+   (0, 0, 520) looking at the origin, fov 60). Then one rgbbox render under
+   ``utils.profiling.device_trace`` (``[profile]``): ``device_kernel_ms``
+   of the exported Chrome trace equal to the per-kernel sums of the same
+   session's device events, the per-kernel times beside the card's name and
+   power limit;
 6. main path, fwd+bwd: ``make_render_pallas_diff`` at 1000x1000, depth 50,
    with the scene's ``pallas_diff_config``, then ``loss.backward()`` for
    ``loss = (f(spheres, cam) ** 2).sum()``: launches counted from zero
-   around one step (K1d once a phase, K2 once a segment), finite non-zero
-   gradients, step times with CUDA events, per-launch K1d times on both
-   routes in turns as phase 5 times them, K2 times, one
-   profiled step, the bounds, and the uncounted step's image and gradients
-   against the plain engine on the card (the counted step's, and the
-   step's with the kernels' counters, too: images bit-equal, gradients
-   within the same bounds); per K2 segment (``K2 segment`` lines) its
-   time, bounces, atomic row-adds (the model's, equal to the kernel's
-   counters on the same inputs), conflict factor (bounces per row-add)
-   and ``index_add_``'s time.  Then ``examples/pallas_gradients.py``'s
-   port as a user runs it (``[example]`` lines), at its defaults (64x64,
-   depth 8) and at 1000x1000, depth 50: launches counted from zero around
-   one run (K1d and K2 once each, its engine being one segment), finite
-   loss and gradients, the run's host seconds, and at the defaults the
-   gradients against the plain engine on the card within this phase's
-   bound;
+   around one step (the layout's two stages once each, K1d once a phase, K2
+   once a segment), finite non-zero gradients, step times with CUDA events,
+   per-launch K1d times on both routes in turns as phase 5 times them, K2
+   times, one profiled step, the bounds, and the uncounted step's image and
+   gradients against the plain engine on the card (the counted step's, and
+   the step's with the kernels' counters, too: images bit-equal, gradients
+   within the same bounds); per K2 segment (``K2 segment`` lines) its time,
+   bounces, atomic row-adds (the model's, equal to the kernel's counters on
+   the same inputs), conflict factor (bounces per row-add) and
+   ``index_add_``'s time.  Then ``examples/pallas_gradients.py``'s port as
+   a user runs it (``[example]`` lines), at its defaults (64x64, depth 8)
+   and at 1000x1000, depth 50: launches counted from zero around one run
+   (K1d and K2 once each, its engine being one segment), finite loss and
+   gradients, the run's host seconds, and at the defaults the gradients
+   against the plain engine on the card within this phase's bound;
 7. the BVH path against its plain versions: ``build_bvh`` on the card
    field for field equal to the CPU build (rgbbox, irreg and plane at leaf
    8, the 1M-sphere soup of ``bench.py`` at leaf 128 and 8),
@@ -213,6 +221,9 @@ SOUPS = {"soup20k": (20_000, 5, 200.0, 260.0),
 CELLS = {"rgbbox": (SIZE, DEPTH), "irreg": (SIZE, DEPTH),
          "plane": (SIZE, DEPTH), "soup1m": (256, 5)}
 SOUP_CONFIG = (2048, (8, 256), (), None)    # bench.py's tile and blocks
+# one layout build of more than 128 spheres: the codes, then the pack
+LAYOUT_LAUNCHES = {"total": 2, "codes": 1, "pack": 1}
+LAYOUT_RUNS = 6                 # rounds of the two builds in turns (phase 1b)
 WARP = 32
 
 # the card's peaks and the kernels' operation counts, which every bound of
@@ -544,6 +555,116 @@ def phase_card_and_build() -> None:
     log(f"[build] M1 here: sqrtf {w['sqrt']:.3f}, division {w['div']:.3f}, "
         f"1/x {w['rcp']:.3f} multiply-equivalents; the bounds charge "
         f"SQRT_OPS = {SQRT_OPS}, DIV_OPS = {DIV_OPS}")
+
+
+def _layout_equal(what: str, got, want) -> int:
+    """Every field of layout ``got`` equal to ``want``'s, bit for bit but
+    for zeros of ``aabbT`` and ``superT`` whose sign alone differs (the
+    boxes fold in another order than torch's reductions); returns how many
+    such zeros there are."""
+    import torch
+    signed = 0
+    for field in got._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise SmokeError(f"{what}: {field} {tuple(a.shape)} {a.dtype}, "
+                             f"the plain build's {tuple(b.shape)} {b.dtype}")
+        if a.dtype == torch.float32:
+            diff = a.view(torch.int32) != b.view(torch.int32)
+        else:
+            diff = a != b
+        if not bool(diff.any()):
+            continue
+        if field in ("aabbT", "superT") and torch.equal(a, b):
+            signed += int(diff.sum())
+            continue
+        raise SmokeError(f"{what}: {field} differs from the plain build's "
+                         f"at {_first_diff(a.reshape(-1), b.reshape(-1))}")
+    return signed
+
+
+def _time_builds(kernel, plain) -> tuple:
+    """Medians over LAYOUT_RUNS rounds, each build after a synchronise and
+    the two in turns (kernel first in even rounds): the host's ms from the
+    call to its return, the ms to the device's end (host clock,
+    synchronised) and between CUDA events around the call."""
+    import statistics
+    import torch
+    times = {kernel: ([], [], []), plain: ([], [], [])}
+    for r in range(LAYOUT_RUNS):
+        for build in (kernel, plain) if r % 2 == 0 else (plain, kernel):
+            host, wall, event = times[build]
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            build()
+            e1.record()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host.append((t1 - t0) * 1e3)
+            wall.append((time.perf_counter() - t0) * 1e3)
+            event.append(e0.elapsed_time(e1))
+    return tuple(dict(host_ms=statistics.median(h),
+                      wall_ms=statistics.median(w),
+                      event_ms=statistics.median(e))
+                 for h, w, e in (times[kernel], times[plain]))
+
+
+def phase_layout(port) -> list:
+    """The scene layout on the card (``csrc/layout.cu``) against the plain
+    build on the card, for every scene the smoke renders, front to back
+    and unsorted: every field equal, the launches by stage, both builds
+    timed in turns; the 1M soup's kernel build, unsorted as phase 5
+    renders it, no slower than the plain one."""
+    import torch
+    from raytracers_tpu_torch.render import megakernel as mk
+    from raytracers_tpu_torch.utils.trace import counting
+    out = []
+    for name in CELLS:
+        if name in SOUPS:
+            sph, _ = _soup(name)
+            origin = (0.0, 0.0, SOUPS[name][3])
+        else:
+            sc = port.scenes.by_name(name)
+            sph, origin = sc.spheres, sc.look_from
+        n = sph.center.shape[0]
+        for so in (origin, None):
+            what = f"{name} {'front to back' if so else 'unsorted'}"
+            with counting(stats=False) as c:
+                got = mk.build_pallas_scene(sph, sort_origin=so)
+            torch.cuda.synchronize()
+            launches = c.read().get("layout.launches", {})
+            want = mk._build_pallas_scene_plain(sph, so, None, mk.LANE)
+            signed = _layout_equal(what, got, want)
+            C = got.n_clusters
+            stages = dict(codes=int(n > mk.LANE),
+                          pack=1 + int(so is not None and C > 16))
+            expect = {k: v for k, v in stages.items() if v}
+            expect["total"] = sum(stages.values())
+            if launches != expect:
+                raise SmokeError(f"{what}: the layout's launches {launches},"
+                                 f" not {expect}")
+            kernel, plain = _time_builds(
+                lambda: mk.build_pallas_scene(sph, sort_origin=so),
+                lambda: mk._build_pallas_scene_plain(sph, so, None, mk.LANE))
+            res = dict(scene=name, sort_origin=so, n=n, clusters=C,
+                       blocks=got.aabbT.shape[0], tail=got.tailT.shape[0],
+                       launches=launches, signed_zeros=signed,
+                       table_bytes=sum(t.numel() * 4 for t in got) + 28 * n,
+                       kernel=kernel, plain=plain)
+            log(f"[layout] {json.dumps(res)}")
+            # the soup as phase 5 renders it; front to back, both builds
+            # spend most of their time in the same torch argsorts (about 500
+            # small operations at C = 7,813), which the host's noise sets
+            if (name in SOUPS and so is None
+                    and kernel["wall_ms"] > plain["wall_ms"]):
+                raise SmokeError(f"{what}: the kernel build takes "
+                                 f"{kernel['wall_ms']:.3f} ms, the plain "
+                                 f"one {plain['wall_ms']:.3f}")
+            out.append(res)
+    return out
 
 
 def _prepare(port, name: str, size: int):
@@ -1007,8 +1128,8 @@ def _log_routes(what: str, turns: dict) -> None:
 def _counted(mk, fn):
     """``fn()`` under the port's launch counts (``utils.trace.counting``
     without ``stats``, so every kernel runs as on the main path): its
-    result, K1's launches, K1's launches by lanes per ray and K2's
-    launches."""
+    result, K1's launches, K1's launches by lanes per ray, K2's launches
+    and the layout's launches by stage."""
     import torch
     from raytracers_tpu_torch.utils.trace import counting
     with counting(stats=False) as c:
@@ -1018,7 +1139,8 @@ def _counted(mk, fn):
     k1 = n.get("k1.launches", {})
     return (out, k1.get("total", 0),
             {lanes: k1.get(f"lanes{lanes}", 0) for lanes in mk.LANES},
-            n.get("k2.launches", {}).get("total", 0))
+            n.get("k2.launches", {}).get("total", 0),
+            n.get("layout.launches", {}))
 
 
 def _check_routes(what: str, routes: dict, rule_lanes) -> None:
@@ -1085,7 +1207,7 @@ def phase_main_path(port, name: str, checker) -> dict:
 
     img = cell.render()                # warm-up, and the main path's image
     torch.cuda.synchronize()
-    counted, launches, routes, _ = _counted(mk, cell.render)
+    counted, launches, routes, _, layout = _counted(mk, cell.render)
     with counting():                            # K1's counting variant
         with_stats = cell.render()
     for what, other in (("counted", counted),
@@ -1096,6 +1218,9 @@ def phase_main_path(port, name: str, checker) -> dict:
     if launches != n_phases:
         raise SmokeError(f"{name}: the main path launched K1 {launches} "
                          f"times, not {n_phases}")
+    if layout:
+        raise SmokeError(f"{name}: a frame built the layout again: "
+                         f"{layout}")
     if img.shape != (size, size) or img.dtype != torch.int32:
         raise SmokeError(f"{name}: image {tuple(img.shape)} {img.dtype}")
 
@@ -1365,7 +1490,8 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     step = lambda: _grads(f, spheres, cam)                      # noqa: E731
 
     step()                                                      # warm-up
-    counted_step, k1d_launches, routes, k2_launches = _counted(mk, step)
+    counted_step, k1d_launches, routes, k2_launches, layout = _counted(
+        mk, step)
     launches = (k1d_launches, k2_launches)
     with counting():                   # K1d's counting variant, K2's counters
         stats_step = step()
@@ -1377,6 +1503,9 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     if launches != (n_phases, n_phases):
         raise SmokeError(f"{name}: one fwd+bwd step launched K1d and K2 "
                          f"{launches} times, not {n_phases} each")
+    if layout != LAYOUT_LAUNCHES:
+        raise SmokeError(f"{name}: one fwd+bwd step launched the layout's "
+                         f"stages {layout}, not {LAYOUT_LAUNCHES}")
     if img.shape != (SIZE, SIZE, 3) or not torch.isfinite(img).all():
         raise SmokeError(f"{name}: image {tuple(img.shape)} not finite")
     for g, what in zip(grads, ("centre", "radius", "colour", "origin",
@@ -1516,7 +1645,8 @@ def phase_example(port) -> list:
         ex.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        (loss, grads), k1d, routes, k2 = _counted(mk, lambda: ex.main(argv))
+        (loss, grads), k1d, routes, k2, _ = _counted(
+            mk, lambda: ex.main(argv))
         launches = (k1d, k2)
         what = f"example {side}x{side} d{depth}"
         if launches != (1, 1):
@@ -2038,7 +2168,7 @@ def _k1f_cell(port, default: Cell, mode: str, checker, default_img) -> dict:
 
     render()                                                    # warm-up
     torch.cuda.synchronize()
-    img, launches, routes, _ = _counted(mk, render)
+    img, launches, routes, _, _ = _counted(mk, render)
     if launches != n_phases:
         raise SmokeError(f"{name} {mode}: the render launched K1 {launches} "
                          f"times, not {n_phases}")
@@ -2590,9 +2720,11 @@ def phase_train(port, fb_results) -> dict:
     return res
 
 
-def _kernels_record(checkers, diff_checkers, results, fb_results,
+def _kernels_record(layouts, checkers, diff_checkers, results, fb_results,
                     k3_checkers, k3_results, k1f, probes, train) -> list:
-    """One entry per kernel and scene: K1 from the render main path, K1d
+    """One entry per kernel and scene: the layout build from phase 1b
+    (replacing no TPU kernel; its bound the tables' and spheres' bytes
+    once at the HBM rate), K1 from the render main path, K1d
     and K2 from the fwd+bwd main path, K3 from the BVH main path, K1f's
     modes from phase 9's cells and its W = 64 fwd+bwd steps, K1d and K2
     of the train step (phase 11) with its launches and phase 6's times;
@@ -2602,6 +2734,15 @@ def _kernels_record(checkers, diff_checkers, results, fb_results,
     src = {k: str(_cuda.source(k).relative_to(ROOT)) for k in _cuda.KERNELS}
     where = f"{SIZE}x{SIZE} d{DEPTH}"
     out = []
+    for r in layouts:
+        order = "front to back" if r["sort_origin"] else "unsorted"
+        out.append(dict(
+            name=f"layout build ({r['scene']}, {order})", route="cuda",
+            source=src["layout"], replaces=None, launches=r["launches"],
+            max_abs_err=0.0, ms=r["kernel"]["event_ms"],
+            plain_ms=r["plain"]["event_ms"],
+            bound_ms=r["table_bytes"] / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None))
     for r in results:
         # scene-scale layouts run K1e, the two-level cull
         k1e = r["cull_blocks"] > 1
@@ -2737,6 +2878,7 @@ def main() -> int:
     try:
         port = load_port()
         phase_card_and_build()
+        layouts = phase_layout(port)
         checkers = phase_kernel_vs_plain(port)
         checkers.update(phase_scene_scale_vs_plain(port))
         diff_checkers = phase_diff_kernels_vs_plain(port)
@@ -2756,7 +2898,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": _kernels_record(
-        checkers, diff_checkers, results, fb_results, k3_checkers,
+        layouts, checkers, diff_checkers, results, fb_results, k3_checkers,
         k3_results, k1f, probes, train)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ library of its own with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/kernels/`` of the checkout, named by a hash of the
 source, the headers of ``csrc/`` and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  ``build_all`` starts one ``nvcc``
-for each source that needs it, all together, and waits for them.
+for each source that needs it, all together, and waits for them; the first
+``load`` of a kernel of ``MAIN_PATH`` builds all of them so.
 
 The flags keep IEEE float32 arithmetic: ``-fmad=false`` stops nvcc from
 contracting a multiply and an add into an FMA (which would move rays by an
@@ -38,6 +39,10 @@ KERNELS = {
     "replay_bwd": ("replay_bwd.cu", "rt_replay_bwd_launch",
                    [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
                     _i, _p]),
+    # the scene layout: stage 0 the Morton codes, 1 the pack
+    "layout": ("layout.cu", "rt_layout_launch",
+               [_i, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p,
+                _p, _i, _i, _i, _i, _i, _i, _i, _i, _p]),
     "traversal": ("traversal.cu", "rt_traversal_launch",
                   [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p, _i, _i, _i, _p,
                    _p, _p]),
@@ -51,6 +56,11 @@ KERNELS = {
                            "rt_microbench_mxuquad_launch",
                            [_i, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p]),
 }
+
+# the kernels of the benchmark's cells: the first load of any of them builds
+# every one whose library is missing, so a checkout's first run waits for one
+# round of nvcc, not one after another
+MAIN_PATH = ("layout", "megakernel", "replay_bwd")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -113,7 +123,7 @@ def load(name: str):
     """The launch function of kernel ``name``, with its ctypes signature."""
     with _lock:
         if name not in _libs:
-            build_all((name,))
+            build_all(MAIN_PATH if name in MAIN_PATH else (name,))
             lib = ctypes.CDLL(build_info[name]["path"])
             _, fn_name, argtypes = KERNELS[name]
             fn = getattr(lib, fn_name)

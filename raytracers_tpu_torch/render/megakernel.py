@@ -131,18 +131,78 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
     distances tie.  Scene-scale layouts (C > 128) take blocks of
     CR = ``cull_rows`` cull rows (default 64, rounded down to a multiple
     of 8 within [8, 128]), as the JAX package does; any CR gives the same
-    image, since culling is conservative at any grouping."""
+    image, since culling is conservative at any grouping.
+
+    A CPU tensor takes the plain version, ``_build_pallas_scene_plain``; a
+    CUDA tensor the two launches of ``csrc/layout.cu`` around one stable
+    sort (``_build_pallas_scene_cuda``), which give the same tables bit for
+    bit (a signed zero of ``aabbT`` or ``superT`` may differ in its sign
+    alone).  The layout is built from the spheres on every call."""
     W = cluster_width or LANE
     if W not in WIDTHS:
         raise ValueError(f"cluster_width {W}: the kernel takes {WIDTHS}")
     n = sph.center.shape[0]
+    if n <= LANE and W < LANE:
+        raise ValueError(
+            f"cluster_width {W} needs more than {LANE} spheres: a scene "
+            f"of {n} is one padded {LANE}-row cluster (the JAX package "
+            "fails to reshape it too)")
+    dev = sph.center.device
+    if dev.type == "cpu":
+        return _build_pallas_scene_plain(sph, sort_origin, cull_rows, W)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _build_pallas_scene_cuda(sph, sort_origin, cull_rows, W)
+
+
+def _cull_blocks(C: int, cull_rows: int | None) -> tuple:
+    """(CR, CB, SBR): cull rows a block, blocks, and superT's rows."""
+    CR = (max(8, -(-C // 8) * 8) if C <= LANE
+          else max(8, min(LANE, cull_rows or 64) // 8 * 8))
+    CB = -(-C // CR)
+    return CR, CB, max(8, -(-CB // 8) * 8)
+
+
+def _tail_rows(n: int, C: int, W: int, reordered: bool) -> int:
+    """P, the rows of the tail peel: the partial last cluster's, rounded
+    up to a power of two from 8, while that cluster is still last; else
+    W (no peel)."""
+    n_tail = n - (C - 1) * W
+    if reordered or n_tail >= W:
+        return W
+    P = 8
+    while P < n_tail:
+        P *= 2
+    return P
+
+
+def _front_to_back(leaf_min, leaf_max, sort_origin, CR: int):
+    """The clusters' front-to-back order: a stable argsort of their AABB
+    centres' squared distances from ``sort_origin`` within each block of
+    CR, and of the full blocks by their nearest cluster when there are two
+    or more (the partial tail block stays last)."""
+    C = leaf_min.shape[0]
+    o = torch.tensor(sort_origin, dtype=torch.float32, device=leaf_min.device)
+    d = 0.5 * (leaf_min + leaf_max) - o
+    dist = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    segs = [b0 + torch.argsort(dist[b0:min(b0 + CR, C)], stable=True)
+            for b0 in range(0, C, CR)]
+    n_full = C // CR
+    if n_full >= 2:
+        blk_d = torch.stack([dist[b0:b0 + CR].amin()
+                             for b0 in range(0, n_full * CR, CR)])
+        border = torch.argsort(blk_d, stable=True)
+        full = torch.stack(segs[:n_full])
+        segs = [full[border].reshape(-1)] + segs[n_full:]
+    return torch.cat(segs)
+
+
+def _build_pallas_scene_plain(sph: Spheres, sort_origin, cull_rows,
+                              W: int) -> PallasScene:
+    """``build_pallas_scene`` in torch operations, on any device."""
+    n = sph.center.shape[0]
     dev = sph.center.device
     if n <= LANE:
-        if W < LANE:
-            raise ValueError(
-                f"cluster_width {W} needs more than {LANE} spheres: a scene "
-                f"of {n} is one padded {LANE}-row cluster (the JAX package "
-                "fails to reshape it too)")
         # one cluster: pad with radius-0 spheres at the last real centre
         pad = LANE - n
         r = sph.radius[:, None]
@@ -160,29 +220,13 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
         clusters = build_clusters(sph, leaf_size=W)
     C = clusters.n_leaves
     s = clusters.spheres
-
-    CR = (max(8, -(-C // 8) * 8) if C <= LANE
-          else max(8, min(LANE, cull_rows or 64) // 8 * 8))
+    CR, CB, SBR = _cull_blocks(C, cull_rows)
 
     leaf_min, leaf_max = clusters.leaf_min, clusters.leaf_max
     order2d = clusters.order.reshape(C, W)
     perm = None
     if sort_origin is not None and C > 16:
-        o = torch.tensor(sort_origin, dtype=torch.float32, device=dev)
-        d = 0.5 * (leaf_min + leaf_max) - o
-        dist = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-        segs = [b0 + torch.argsort(dist[b0:min(b0 + CR, C)], stable=True)
-                for b0 in range(0, C, CR)]
-        n_full = C // CR
-        if n_full >= 2:
-            # scene scale: full blocks front-to-back too; the partial tail
-            # block stays last
-            blk_d = torch.stack([dist[b0:b0 + CR].amin()
-                                 for b0 in range(0, n_full * CR, CR)])
-            border = torch.argsort(blk_d, stable=True)
-            full = torch.stack(segs[:n_full])
-            segs = [full[border].reshape(-1)] + segs[n_full:]
-        perm = torch.cat(segs)
+        perm = _front_to_back(leaf_min, leaf_max, sort_origin, CR)
         leaf_min, leaf_max = leaf_min[perm], leaf_max[perm]
         order2d = order2d[perm]
 
@@ -198,7 +242,6 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
     ], dim=1)                                             # (C, 8, W)
     sphT = sph8.transpose(1, 2).contiguous()              # (C, W, 8)
 
-    CB = -(-C // CR)
     pad = CB * CR - C
     inf = float("inf")
 
@@ -216,7 +259,6 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
         leaf_min.new_zeros(CB * CR),
     ], dim=1).reshape(CB, CR, 8)
 
-    SBR = max(8, -(-CB // 8) * 8)
     blk_min = aabbT[:, :, 0:3].amin(dim=1)                # (CB, 3)
     blk_max = aabbT[:, :, 3:6].amax(dim=1)
     superT = torch.cat([
@@ -225,13 +267,7 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
         blk_min.new_zeros(SBR, 2),
     ], dim=1)[None]                                       # (1, SBR, 8)
 
-    # tail peel only while the partial cluster is still last
-    n_tail = n - (C - 1) * W
-    P = W
-    if perm is None and n_tail < W:
-        P = 8
-        while P < n_tail:
-            P *= 2
+    P = _tail_rows(n, C, W, perm is not None)
     if W < LANE:
         # slots stay cluster*128 + lane: pad each cluster's row to 128
         order2d = torch.cat([order2d, order2d.new_full((C, LANE - W), -1)],
@@ -240,6 +276,81 @@ def build_pallas_scene(sph: Spheres, sort_origin=None,
                        superT=superT, order=order2d,
                        tailT=sphT[C - 1, :P, :].contiguous(),
                        tail8=sph8[C - 1, :, :P].contiguous())
+
+
+LAYOUT_MAX_BLOCKS = 256   # blocks of layout_codes, each leaving a partial
+
+
+def _check_layout_input(sph: Spheres) -> None:
+    """What ``csrc/layout.cu`` takes: contiguous float32 (n, 3) centres and
+    colours and (n,) radii on one device, 1 <= n <= 2^26 (its int32
+    offsets)."""
+    n = sph.center.shape[0] if sph.center.dim() else 0
+    want = {"center": (n, 3), "radius": (n,), "color": (n, 3)}
+    for name, t in zip(Spheres._fields, sph):
+        if (t.dtype != torch.float32 or tuple(t.shape) != want[name]
+                or not t.is_contiguous() or t.device != sph.center.device):
+            raise ValueError(
+                f"spheres.{name} must be a contiguous float32 {want[name]} "
+                f"tensor on {sph.center.device}: got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}, contiguous "
+                f"{t.is_contiguous()}")
+    if not 1 <= n <= 2 ** 26:
+        raise ValueError(f"{n} spheres: the layout kernel takes 1 to 2^26")
+
+
+def _build_pallas_scene_cuda(sph: Spheres, sort_origin, cull_rows,
+                             W: int) -> PallasScene:
+    """``build_pallas_scene`` on the card: ``layout_codes``, a stable sort
+    of the codes, ``layout_pack``; with the front-to-back order, the pack
+    again with the clusters' order (``_front_to_back`` on the first pack's
+    boxes).  The seven tables are views of one buffer.  Under
+    ``utils.trace.counting()`` each launch counts in ``layout.launches`` by
+    stage (``codes``, ``pack``)."""
+    from . import _cuda
+    _check_layout_input(sph)
+    fn = _cuda.load("layout")
+    n = sph.center.shape[0]
+    dev = sph.center.device
+    C = 1 if n <= LANE else -(-n // W)
+    CR, CB, SBR = _cull_blocks(C, cull_rows)
+    reorder = sort_origin is not None and C > 16
+    P = _tail_rows(n, C, W, reorder)
+    sizes = (C * W * 8, C * 8 * W, CB * CR * 8, SBR * 8, C * LANE, P * 8,
+             8 * P)
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    sphT, sph8, aabbT, superT, order, tailT, tail8 = flat.split(sizes)
+    scene = PallasScene(
+        sphT=sphT.view(C, W, 8), sph8=sph8.view(C, 8, W),
+        aabbT=aabbT.view(CB, CR, 8), superT=superT.view(1, SBR, 8),
+        order=order.view(torch.int32).view(C, LANE),
+        tailT=tailT.view(P, 8), tail8=tail8.view(8, P))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    c = counters()
+
+    def launch(stage, perm=None, codes=None, partial=None, cperm=None):
+        rc = fn(stage, *map(_ptr, (*sph, perm, cperm, codes, partial)),
+                LAYOUT_MAX_BLOCKS, *map(_ptr, scene), n, C, W, CB, CR, SBR,
+                P, int(n > LANE), stream)
+        if rc != 0:
+            raise RuntimeError("layout launch failed: "
+                               + _cuda.error_string("layout", rc))
+        if c is not None:
+            c.add("layout.launches", 1, "pack" if stage else "codes")
+
+    perm = None
+    if n > LANE:
+        scratch = torch.empty(n + LAYOUT_MAX_BLOCKS * 6, dtype=torch.int32,
+                              device=dev)
+        codes = scratch[:n]
+        launch(0, codes=codes, partial=scratch[n:].view(torch.float32))
+        perm = torch.sort(codes, stable=True)[1]
+    launch(1, perm)
+    if reorder:
+        box = scene.aabbT.view(-1, 8)[:C]
+        launch(1, perm, cperm=_front_to_back(box[:, 0:3], box[:, 3:6],
+                                             sort_origin, CR))
+    return scene
 
 
 def _check_supported(scene: PallasScene) -> None:

@@ -39,7 +39,9 @@ bounces alone:
   launches and, with ``stats``, its ``counters=True`` counts;
   ``k2.bounces`` by segment (``segment<k>``), the records >= 0 the
   engine's backward replays;
-* ``k3.launches``: by geometry path (``shared``, ``global``).
+* ``k3.launches``: by geometry path (``shared``, ``global``);
+* ``layout.launches``: by stage (``codes``, ``pack``), the CUDA launches of
+  the scene layout (``render/megakernel.py`` ``build_pallas_scene``).
 """
 from __future__ import annotations
 
