@@ -16,6 +16,11 @@ and returns the state.  One Adam step differs from optax's by rounding
 only (torch uses ``lerp_`` and ``addcdiv_``), so trajectories of the two
 packages part slowly; gradients and single steps agree.
 
+Under torch.profiler a step runs in the span ``rt.train``, its all-reduce in
+``rt.allreduce`` (``parallel/mesh.py``) and its update (the masks, Adam,
+the clamps) in ``rt.optim``; under ``utils.trace.counting()`` each step adds
+one to ``train.steps``.
+
 As in the JAX package, the gradient is exact for the continuous shading
 terms but omits the visibility boundary term: colour and radius recovery
 converge, pure centre recovery needs ``grad/soft_render.py``.
@@ -33,6 +38,7 @@ from ..geometry import Camera, Spheres
 from ..parallel.mesh import RayMesh, all_sum
 from ..render.bruteforce import make_closest_hit
 from ..render.tracer import primary_rays
+from ..utils.trace import count, span, spanned
 from .diff_render import trace_diff
 
 
@@ -114,6 +120,7 @@ def _leaf_grads(loss_fn, spheres: Spheres) -> list:
     return [loss.detach(), *grads]
 
 
+@spanned("rt.optim")
 def _apply_update(state: InverseState, grads: Spheres, loss, trainable):
     """One optimizer step: gradients masked by ``trainable`` (a masked
     leaf's moments still move, as optax's do), then radius >= 1e-2 and
@@ -176,8 +183,10 @@ def make_train_step_pallas(mesh: RayMesh, width: int, height: int,
         return loss, Spheres(*grads)
 
     def step(state: InverseState, cam: Camera, target_image):
-        loss, grads = loss_and_grads(state.spheres, cam, target_image)
-        return _apply_update(state, grads, loss, trainable)
+        with span("rt.train"):
+            count("train.steps", 1)
+            loss, grads = loss_and_grads(state.spheres, cam, target_image)
+            return _apply_update(state, grads, loss, trainable)
 
     step.loss_and_grads = loss_and_grads
     step.rank_loss_and_grads = rank_loss_and_grads
@@ -213,9 +222,11 @@ def make_train_step(mesh: RayMesh, max_depth: int = 5,
         if origins.shape[0] % mesh.size:
             raise ValueError(f"{origins.shape[0]} rays not divisible by "
                              f"mesh size {mesh.size}")
-        loss, *grads = all_sum(mesh, lambda r: rank_loss_and_grads(
-            r, state.spheres, origins, dirs, target))
-        return _apply_update(state, Spheres(*grads), loss, trainable)
+        with span("rt.train"):
+            count("train.steps", 1)
+            loss, *grads = all_sum(mesh, lambda r: rank_loss_and_grads(
+                r, state.spheres, origins, dirs, target))
+            return _apply_update(state, Spheres(*grads), loss, trainable)
 
     step.rank_loss_and_grads = rank_loss_and_grads
     return step

@@ -15,6 +15,10 @@ and this rank's device.
   sharded result is one global array, assembled only when it is read.
   The only other collective is the train step's all-reduce of the loss and
   the gradients (``grad/inverse.py``).
+* Under ``utils.trace.counting()`` each collective adds one call and the
+  bytes this rank contributes to ``mesh.allreduce_calls`` and
+  ``mesh.allreduce_bytes``, by caller: ``train`` (``all_sum``, the
+  trainers' all-reduce) and ``gather`` (``all_gather``).
 
 A ``RayMesh`` without a process group runs all of its ranks in this
 process, in rank order: its gather concatenates their slabs and its
@@ -34,6 +38,7 @@ from ..render.api import PreparedScene, _oracle, pallas_config
 from ..render.megakernel import render_pallas, render_pallas_twophase
 from ..render.tracer import primary_rays, trace
 from ..utils.platform import resolve_device
+from ..utils.trace import count, span
 
 
 class RayMesh(NamedTuple):
@@ -56,12 +61,23 @@ def ray_mesh(group=None, device=None) -> RayMesh:
                    device)
 
 
+def _count(caller: str, tensors) -> None:
+    """One collective of ``caller`` and the bytes of ``tensors``, this
+    rank's share, under ``counting()``."""
+    count("mesh.allreduce_calls", 1, caller)
+    count("mesh.allreduce_bytes",
+          sum(t.numel() * t.element_size() for t in tensors), caller)
+
+
 def all_gather(mesh: RayMesh, body: Callable[[int], torch.Tensor]):
     """``body(rank)`` of every rank, concatenated along axis 0 in rank
     order, on every rank."""
     if mesh.group is None:
-        return torch.cat([body(r) for r in range(mesh.size)])
+        parts = [body(r) for r in range(mesh.size)]
+        _count("gather", parts[:1])
+        return torch.cat(parts)
     part = body(mesh.rank).contiguous()
+    _count("gather", [part])
     parts = [torch.empty_like(part) for _ in range(mesh.size)]
     dist.all_gather(parts, part, group=mesh.group)
     return torch.cat(parts)
@@ -69,20 +85,28 @@ def all_gather(mesh: RayMesh, body: Callable[[int], torch.Tensor]):
 
 def all_sum(mesh: RayMesh, body: Callable[[int], list]) -> list:
     """The sum over ranks of each float32 tensor of ``body(rank)``, on
-    every rank: one all-reduce of the tensors flattened into one buffer."""
+    every rank: one all-reduce of the tensors flattened into one buffer.
+    The reduction, and not ``body``, runs under the span ``rt.allreduce``:
+    the flatten, the all-reduce and the split, or without a process group
+    the sum of the ranks' tensors in rank order."""
     if mesh.group is None:
-        total = body(0)
-        for r in range(1, mesh.size):
-            total = [a + b for a, b in zip(total, body(r))]
-        return total
+        parts = [body(r) for r in range(mesh.size)]
+        with span("rt.allreduce"):
+            _count("train", parts[0])
+            total = parts[0]
+            for part in parts[1:]:
+                total = [a + b for a, b in zip(total, part)]
+            return total
     part = body(mesh.rank)
-    flat = torch.cat([t.reshape(-1) for t in part])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
-    out, k = [], 0
-    for t in part:
-        out.append(flat[k:k + t.numel()].reshape(t.shape))
-        k += t.numel()
-    return out
+    with span("rt.allreduce"):
+        _count("train", part)
+        flat = torch.cat([t.reshape(-1) for t in part])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        out, k = [], 0
+        for t in part:
+            out.append(flat[k:k + t.numel()].reshape(t.shape))
+            k += t.numel()
+        return out
 
 
 def _pad_to(x, r):

@@ -7,7 +7,10 @@ on the host even with no profiler running; the gate costs well under 1 µs.
 Every name starts with ``rt.`` and names the layer: ``rt.render``,
 ``rt.rays``, ``rt.phase<k>``, ``rt.boundary<k>``, ``rt.unpermute``,
 ``rt.layout``, ``rt.grad.forward``, ``rt.grad.backward``, ``rt.reorder``,
-``rt.segment<k>``, ``rt.carry<k>``, ``rt.scatter``, ``rt.camera``.
+``rt.segment<k>``, ``rt.carry<k>``, ``rt.scatter``, ``rt.camera``;
+the trainer's ``rt.train`` (a whole step), ``rt.allreduce`` (the
+reduction of ``parallel/mesh.py`` ``all_sum``) and ``rt.optim`` (the
+masks, the optimizer's step, the clamps).
 
 The range is a plain host range (``RecordScope::FUNCTION``), not a user
 annotation: the profiler draws no device-side copy of it, so a trace's
@@ -42,6 +45,10 @@ bounces alone:
 * ``k3.launches``: by geometry path (``shared``, ``global``);
 * ``layout.launches``: by stage (``codes``, ``pack``), the CUDA launches of
   the scene layout (``render/megakernel.py`` ``build_pallas_scene``).
+* ``mesh.allreduce_calls``, ``mesh.allreduce_bytes``: by caller
+  (``train``: ``all_sum``; ``gather``: ``all_gather``), the mesh's
+  collectives and the bytes this rank contributes to each;
+* ``train.steps``: the trainer's steps (``grad/inverse.py``).
 """
 from __future__ import annotations
 
@@ -121,6 +128,13 @@ class Counters:
 def counters() -> Counters | None:
     """The registry of the innermost ``counting()``, or None."""
     return _registry
+
+
+def count(name: str, value, part: str | None = None) -> None:
+    """``Counters.add`` on the innermost ``counting()``'s registry; nothing
+    outside it."""
+    if _registry is not None:
+        _registry.add(name, value, part)
 
 
 def stats_on(c: Counters | None) -> bool:

@@ -348,3 +348,19 @@ def test_examples_run_on_the_host(tmp_path, capsys):
     assert len(rgbbox_recovery.main(args + ["--steps", "2"])) == 2
     assert len(rgbbox_recovery.main(args + ["--steps", "3"])) == 1
     assert "resumed from" in capsys.readouterr().out
+
+
+def test_fit_grad_gap_probe_isolates_the_differing_pixels(capsys):
+    """At a fit's start the kernel engine's colour gradient stands off the
+    plain renderer's by the few pixels whose paths the two settle
+    differently; with those left out of both cotangents they agree."""
+    import re
+
+    from raytracers_tpu_torch.probes import fit_grad_gap
+    fit_grad_gap.main(["--size", "24", "--depth", "4", "--seeds", "1"])
+    out = capsys.readouterr().out
+
+    def read(name):
+        return float(re.search(rf"\b{name} (\S+)", out).group(1))
+    assert read("grad_kept") < 1e-3
+    assert read("grad") > 10 * read("grad_kept")

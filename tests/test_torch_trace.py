@@ -1,11 +1,13 @@
 """The port's spans and counters (``utils/trace.py``) on the CPU.
 
 Under torch.profiler a render through the compaction schedule and a fwd+bwd
-step emit the ``rt.`` spans with the layers' nesting; with no profiler
-running no profiler range is entered at all.  Under ``counting()`` the
-counters equal what the port computes without them (``render_stats``, a
-direct count of the survivors of each boundary), and the images and
-gradients are bit-equal to those of an uncounted call.
+step emit the ``rt.`` spans with the layers' nesting, and a step of the
+trainer nests them under ``rt.train`` beside its all-reduce and update;
+with no profiler running no profiler range is entered at all.  Under
+``counting()`` the counters equal what the port computes without them
+(``render_stats``, a direct count of the survivors of each boundary, the
+bytes the all-reduce carries), and the images, gradients and updated
+states are bit-equal to those of an uncounted call.
 """
 import pytest
 import torch
@@ -13,7 +15,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from raytracers_tpu_torch import geometry as tgeo
 from raytracers_tpu_torch import scenes as tscenes
+from raytracers_tpu_torch.grad.inverse import (adam, init_state,
+                                               make_train_step_pallas)
 from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+from raytracers_tpu_torch.parallel.mesh import RayMesh, all_gather, ray_mesh
 from raytracers_tpu_torch.render import megakernel as tmk
 from raytracers_tpu_torch.render.api import (pallas_config, prepare_scene,
                                              render, render_stats)
@@ -245,3 +250,92 @@ def test_counting_without_stats_keeps_the_main_path_kernels(unit):
                                              "phase2"}
         assert ("k2.bounces" in n) == (unit == "step")
     assert torch.equal(images[0], images[1])
+
+
+TRAIN_SPANS = {"rt.grad.forward", "rt.grad.backward", "rt.allreduce",
+               "rt.optim"}
+
+
+@pytest.fixture(params=["gloo", None], ids=["gloo", "no_group"])
+def train_mesh(request):
+    """A one-rank mesh over a gloo process group (a ``HashStore``), as
+    ``chip_smoke.py`` runs the trainer over NCCL, or over none."""
+    import torch.distributed as dist
+    if request.param is None:
+        yield RayMesh(0, 1, None, torch.device(CPU))
+        return
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield ray_mesh(device=CPU)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(mesh):
+    """A train step of the colours alone, its state and its target."""
+    sc, prep = _prepared("rgbbox")
+    sph = sc.spheres
+    mask = tgeo.Spheres(torch.zeros_like(sph.center),
+                        torch.zeros_like(sph.radius),
+                        torch.ones_like(sph.color))
+    step = make_train_step_pallas(
+        mesh, SIZE, SIZE, max_depth=STEP_DEPTH, trainable=mask, tile=256,
+        block=(16, 16), schedule=STEP_SCHEDULE, sort_prefix=STEP_PREFIX)
+    target = torch.rand(SIZE, SIZE, 3,
+                        generator=torch.Generator().manual_seed(3))
+    return step, lambda: init_state(sph, adam(2e-3)), prep.cam, target
+
+
+def test_train_spans_nest_under_train(train_mesh):
+    step, state, cam, target = _train(train_mesh)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state(), cam, target)
+    spans = _spans(prof)
+    assert [n for n, parent in spans if parent is None] == ["rt.train"]
+    assert {n for n, p in spans if p == "rt.train"} == TRAIN_SPANS
+    names = [n for n, _ in spans]
+    assert names.index("rt.grad.backward") < names.index("rt.allreduce") \
+        < names.index("rt.optim")
+
+
+def test_train_counters_and_bit_equal_state(train_mesh):
+    """A step adds one to ``train.steps`` and one all-reduce of the loss
+    and the three leaves' gradients, (1 + 7 n) float32 for n spheres;
+    counting changes no bit of the updated state."""
+    step, state, cam, target = _train(train_mesh)
+    plain, counted = state(), state()
+    for _ in range(2):
+        step(plain, cam, target)
+    with trace.counting() as c:
+        for _ in range(2):
+            step(counted, cam, target)
+    n = c.read()
+    spheres = plain.spheres.center.shape[0]
+    assert n["train.steps"] == {"total": 2}
+    assert n["mesh.allreduce_calls"] == {"total": 2, "train": 2}
+    assert n["mesh.allreduce_bytes"] == {"total": 2 * (1 + 7 * spheres) * 4,
+                                         "train": 2 * (1 + 7 * spheres) * 4}
+    assert all(torch.equal(a, b) for a, b in zip(plain.leaves(),
+                                                 counted.leaves()))
+
+
+def test_gather_counts_under_its_caller():
+    mesh = RayMesh(0, 2, None, torch.device(CPU))
+    with trace.counting() as c:
+        out = all_gather(mesh, lambda r: torch.full((3,), float(r)))
+    assert out.tolist() == [0.0, 0.0, 0.0, 1.0, 1.0, 1.0]
+    assert c.read() == {"mesh.allreduce_calls": {"total": 1, "gather": 1},
+                        "mesh.allreduce_bytes": {"total": 12, "gather": 12}}
+
+
+def test_no_span_in_an_untraced_train_step(monkeypatch, train_mesh):
+    """Untraced, the trainer's spans are the shared null context.  (The
+    optimizer's step opens torch's own ``record_function`` whatever the
+    port does, so only the port's range is refused here.)"""
+    def refuse(*args, **kw):
+        raise AssertionError("a span was entered untraced")
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    step, state, cam, target = _train(train_mesh)
+    assert trace.span("rt.train") is trace.span("rt.optim")
+    step(state(), cam, target)
