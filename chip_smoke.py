@@ -62,7 +62,13 @@ a failed phase exits non-zero before the final line:
    thread-per-ray route's warp-lane share of the visit work, the uncounted
    image against the plain version (the counted render, and the render with
    K1's counters, bit-equal to it), and for the soup the render at twice
-   the side. rgbbox, irreg and plane-100k go through ``prepare_scene`` +
+   the side.  A multi-phase cell's timed renders replay the frame's CUDA
+   graphs (``render_pallas_twophase``): its counted render captures them,
+   and K1's launches a phase and by route are read from torch.profiler's
+   kernels of one replayed frame; its replayed frame is checked bit for bit
+   against the same frame with its launches run one by one, and both are
+   timed in turns (graph, eager, eager, graph; ``[graphs]`` lines).
+   rgbbox, irreg and plane-100k go through ``prepare_scene`` +
    ``render(mode="pallas")`` at 1000x1000, depth 50; the 1M-sphere soup
    through ``build_pallas_scene`` + ``render_pallas`` at 256x256, depth 5,
    tile 2048, blocks (8, 256), as ``bench.py`` renders it (the camera at
@@ -193,6 +199,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1190,6 +1197,93 @@ def _log_native_beside_card(native_ms: dict, results) -> None:
                 f"{native_ms[r['scene']]:.3f} ms on the host CPU ({cpu})")
 
 
+def _replayed_k1(mk, what: str, render: Callable, n_phases: int) -> tuple:
+    """K1's launches in a replayed frame of ``render()``, as the device ran
+    them: torch.profiler's ``megakernel<`` kernels tied to each
+    ``rt.phase<k>`` span of the second of two replayed frames, a list by
+    phase, and by lanes per ray (the kernel's last template argument).
+    Late in a long process the profiler has missed the first 17-19 device
+    operations after its start (the first frame's K1 launch of phase 0
+    among them), so the first frame is not read.  A replay's own
+    ``k1.launches`` are what its capture counted, added again, and show
+    nothing of what ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from raytracers_tpu_torch.utils.trace import counting
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with counting(stats=False) as c:
+            for _ in range(2):
+                render()
+        torch.cuda.synchronize()
+    route = c.read()["render.graph"]
+    if route != {"total": 2, "replay": 2}:
+        raise SmokeError(f"{what}: the profiled frames' routes are {route}, "
+                         "not two replays")
+    last = {}
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CPU
+                     and e.name.startswith("rt.")),
+                    key=lambda e: e.time_range.start):
+        k1 = [k.name for k in e.kernels if "megakernel<" in k.name]
+        if k1 and not e.name.startswith("rt.phase"):
+            raise SmokeError(f"{what}: a replayed K1 launch is tied to "
+                             f"{e.name}")
+        if e.name.startswith("rt.phase"):
+            last[int(e.name[len("rt.phase"):])] = k1
+    per_phase = [len(last.get(k, ())) for k in range(n_phases)]
+    by_lanes = {lanes: 0 for lanes in mk.LANES}
+    for name in (n for k1 in last.values() for n in k1):
+        args = name.split("megakernel<", 1)[1].split(">", 1)[0]
+        lanes = int(re.search(r"(\d+)\s*$", args).group(1))
+        by_lanes[lanes] = by_lanes.get(lanes, 0) + 1
+    return per_phase, by_lanes
+
+
+def _replayed_launches(mk, what: str, render: Callable,
+                       n_phases: int) -> tuple:
+    """Where the counted frame captured the frame's graphs: K1's launches
+    of a frame that replays them, and by lanes per ray, from the device;
+    once a phase, each tied to its phase's span."""
+    per_phase, routes = _replayed_k1(mk, what, render, n_phases)
+    if per_phase != [1] * n_phases:
+        raise SmokeError(f"{what}: a replayed frame launched K1 {per_phase} "
+                         "times a phase, not once each")
+    return n_phases, routes
+
+
+def _graph_turns(mk, cell: Cell, checker) -> dict:
+    """The cell's frame replayed from its CUDA graphs against the same frame
+    with its launches run one by one: bit-equal, then each timed in turns
+    (graph, eager, eager, graph; REPEATS frames a turn, CUDA events).
+    Returns the mean ms of each."""
+    from raytracers_tpu_torch.utils.timing import cuda_ms
+    from raytracers_tpu_torch.utils.trace import counting
+    eager = mk.megakernel_eager
+    with counting(stats=False) as c:
+        graph_img = cell.render()
+    route = c.read()["render.graph"]
+    if route != {"total": 1, "replay": 1}:
+        raise SmokeError(f"{cell.name}: the timed frame's route is {route}, "
+                         "not a replay")
+    checker.compare("frame replayed from its graphs against the eager one",
+                    graph_img.reshape(-1),
+                    _render_with(cell, eager).reshape(-1))
+    runs = {"graph": cell.render, "eager": lambda: _render_with(cell, eager)}
+    ms = {"graph": [], "eager": []}
+    for which in ("graph", "eager", "eager", "graph"):
+        ms[which].append(cuda_ms(runs[which], warmup=1, runs=REPEATS))
+    out = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"[graphs] {cell.name} {cell.size}x{cell.size} d{cell.depth}: frame "
+        f"replayed from its graphs bit-equal to the eager one; ms a frame "
+        f"(graph, eager, eager, graph) {ms['graph'][0]:.4f} "
+        f"{ms['eager'][0]:.4f} {ms['eager'][1]:.4f} {ms['graph'][1]:.4f}: "
+        f"graph {out['graph']:.4f}, eager {out['eager']:.4f}")
+    return out
+
+
 def phase_main_path(port, name: str, checker) -> dict:
     import torch
     from raytracers_tpu_torch.render import megakernel as mk
@@ -1215,6 +1309,9 @@ def phase_main_path(port, name: str, checker) -> dict:
         if not torch.equal(other, img):
             raise SmokeError(f"{name}: the image {what} differs from the "
                              "uncounted render's")
+    if cell.multi_phase:
+        launches, routes = _replayed_launches(mk, name, cell.render,
+                                              n_phases)
     if launches != n_phases:
         raise SmokeError(f"{name}: the main path launched K1 {launches} "
                          f"times, not {n_phases}")
@@ -1228,6 +1325,8 @@ def phase_main_path(port, name: str, checker) -> dict:
     render_ms = [cuda_ms(cell.render, warmup=0, runs=REPEATS)
                  for _ in range(3)]
     mean_ms = sum(render_ms) / len(render_ms)
+    graph_ms = (_graph_turns(mk, cell, checker) if cell.multi_phase
+                else None)
 
     turns = route_turns(mk, n_phases, lambda k: _render_with(cell, k),
                         ROUTE_REPS)
@@ -1273,7 +1372,7 @@ def phase_main_path(port, name: str, checker) -> dict:
                clusters=ps.n_clusters, cull_blocks=ps.aabbT.shape[0],
                tile=tile, block=block, schedule=schedule,
                sort_prefix=prefix, prepare_ms=prep_ms, render_ms=render_ms,
-               render_ms_mean=mean_ms,
+               render_ms_mean=mean_ms, graph_turns_ms=graph_ms,
                mrays_per_s=size * size / mean_ms / 1e3,
                k1_launches=launches, k1_route_launches=routes,
                k1_phase_ms=k1_phase_ms, k1_ms=k1_ms,
@@ -1495,7 +1594,9 @@ def phase_fwdbwd(port, name: str, cluster_width=None,
     launches = (k1d_launches, k2_launches)
     with counting():                   # K1d's counting variant, K2's counters
         stats_step = step()
-    # the main path's step, uncounted, and its peak
+    # the main path's step, uncounted, and its peak (without the frame
+    # graphs the renders before it keep)
+    mk.release_graphs()
     torch.cuda.reset_peak_memory_stats()
     img, grads = step()
     torch.cuda.synchronize()
@@ -2169,6 +2270,8 @@ def _k1f_cell(port, default: Cell, mode: str, checker, default_img) -> dict:
     render()                                                    # warm-up
     torch.cuda.synchronize()
     img, launches, routes, _, _ = _counted(mk, render)
+    launches, routes = _replayed_launches(mk, f"{name} {mode}", render,
+                                          n_phases)
     if launches != n_phases:
         raise SmokeError(f"{name} {mode}: the render launched K1 {launches} "
                          f"times, not {n_phases}")
@@ -2262,6 +2365,7 @@ def _k1f_xla(port) -> list:
     XLA_TOLS."""
     import torch
     from raytracers_tpu_torch.grad.pallas_diff import make_render_pallas_diff
+    from raytracers_tpu_torch.render import megakernel as mk
     from raytracers_tpu_torch.utils.timing import cuda_ms
     spheres, cam, _, (tile, block, schedule, prefix) = _diff_scene(
         port, XLA_SCENE, SIZE)
@@ -2279,6 +2383,7 @@ def _k1f_xla(port) -> list:
             warm_s = time.perf_counter() - t0
             if warm_s > XLA_MAX_STEP_S:
                 break
+            mk.release_graphs()       # the frame graphs of earlier renders
             torch.cuda.reset_peak_memory_stats()
             ms = [cuda_ms(lambda: _grads(f, spheres, cam), warmup=0, runs=1)
                   for _ in range(2)]

@@ -51,7 +51,10 @@ geometry is independent of them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
+import weakref
+from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -60,7 +63,7 @@ import torch
 from ..bvh.lbvh import Clusters, build_clusters
 from ..bvh.morton import morton3d
 from ..geometry import MAX_DEPTH, SCENE_EPSILON, T_MAX, Camera, Spheres
-from ..utils.trace import counters, span, spanned, stats_on
+from ..utils.trace import count, counters, counting, span, spanned, stats_on
 from ..vec import sqrt
 from .ray_math import bounce, quad, search_m, search_m_near, sky
 
@@ -821,6 +824,18 @@ class _RayOrder(NamedTuple):
     padded: tuple            # (hp, wp) for block tiles
 
 
+def _ray_shape(width, height, tile, block) -> tuple:
+    """The padded ray count and, for block tiles, the padded (hp, wp)."""
+    if block is None:
+        return -(-(width * height) // tile) * tile, (0, 0)
+    bh, bw = block
+    if bh * bw != tile:
+        raise ValueError(f"block {block} does not cover tile {tile}")
+    wp = -(-width // bw) * bw
+    hp = -(-height // bh) * bh
+    return wp * hp, (hp, wp)
+
+
 @spanned("rt.rays")
 def _ray_order(cam: Camera, width, height, tile, block, row0, total_height,
                depth) -> _RayOrder:
@@ -828,17 +843,11 @@ def _ray_order(cam: Camera, width, height, tile, block, row0, total_height,
     camera at 0-11, row offset 12, depth cap 13, w, h and their reciprocals
     16-19, block geometry 20-23."""
     th = height if total_height is None else total_height
+    n_rays, (hp, wp) = _ray_shape(width, height, tile, block)
     if block is not None:
         bh, bw = block
-        if bh * bw != tile:
-            raise ValueError(f"block {block} does not cover tile {tile}")
-        wp = -(-width // bw) * bw
-        hp = -(-height // bh) * bh
-        n_rays = wp * hp
         blk = [wp // bw, bw, bh, 1.0 / (wp // bw)]
     else:
-        n_rays = -(-(width * height) // tile) * tile
-        wp = hp = 0
         blk = [0.0] * 4
     rest = torch.tensor([float(row0), float(depth), 0.0, 0.0, width, th,
                          1.0 / width, 1.0 / th] + blk, dtype=torch.float32)
@@ -961,6 +970,206 @@ def _coherent_key(st: torch.Tensor, dead: torch.Tensor, scene: PallasScene):
     return (dead << 30) | (octant << 27) | (m >> 3).to(torch.int32)
 
 
+class _Frame:
+    """One multi-phase frame's launches after its params vector, span by
+    span, and the tensors that cross from a span to a later one: the last
+    phase's state ``st``, the next phase's input ``state_in``, the dead
+    rays' pixels ``acc_pix``, each ray's original id ``idx``, each
+    boundary's live mask (``lives``) and the image ``img``.  ``spans()``
+    gives each span's name and launches in order; ``run()`` runs them, each
+    inside its span.  A span reads only what the spans before it wrote in
+    the same run, so a second run renders the frame again.  ``stats`` holds
+    each phase's per-ray counters (None where K1 ran without them)."""
+
+    def __init__(self, scene, ro, width, height, depths, tile, tile2,
+                 segments, prefs, block, coherent, occl_cont, kernel, kw):
+        self.scene, self.ro, self.width, self.height = scene, ro, width, height
+        self.depths, self.tile, self.tile2 = depths, tile, tile2
+        self.segments = self.unpermute_segments = segments
+        self.prefs, self.block = prefs, block
+        self.coherent, self.occl_cont = coherent, occl_cont
+        self.kernel, self.kw = kernel, kw
+        self.st = self.state_in = self.acc_pix = self.idx = self.img = None
+        self.stats = [None] * len(depths)
+        self.lives = [None] * (len(depths) - 1)
+
+    def spans(self) -> list:
+        last = len(self.depths) - 1
+        out = []
+        for k in range(last + 1):
+            out.append((f"rt.phase{k}", functools.partial(self._phase, k)))
+            if k < last:
+                out.append((f"rt.boundary{k}",
+                            functools.partial(self._boundary, k)))
+        return out + [("rt.unpermute", self._unpermute)]
+
+    def run(self) -> None:
+        for name, launches in self.spans():
+            with span(name):
+                launches()
+
+    def count(self, c) -> None:
+        """The frame's rays and K1's counters, by phase, into ``c``."""
+        n = self.ro.n_rays
+        for k, stats in enumerate(self.stats):
+            live_in = n if k == 0 else torch.count_nonzero(self.lives[k - 1])
+            _count_phase(c, k, n, live_in, stats)
+
+    def _phase(self, k: int) -> None:
+        params = self.ro.params.clone()
+        params[13:14].fill_(self.depths[k])  # on the device, no host copy
+        self.st, stats = self.kernel(
+            self.scene, params, self.ro.n_rays,
+            self.tile if k == 0 else self.tile2,
+            block_tiled=(k == 0 and self.block is not None),
+            state_in=self.state_in if k > 0 else None, emit_state=True,
+            force_occl=self.occl_cont and k > 0, **self.kw)
+        self.stats[k] = stats
+
+    def _boundary(self, k: int) -> None:
+        # rays that died this phase hold their colour in rr/rg/rb (zero for
+        # the others), so a plain add takes each pixel from one phase
+        st, n = self.st, self.ro.n_rays
+        pix = pack_pix(st[9], st[10], st[11])
+        acc_pix = pix if k == 0 else self.acc_pix + pix
+        idx = (torch.arange(n, dtype=torch.int32, device=st.device)
+               if k == 0 else self.idx)
+        dead = (st[12] <= 0.0).to(torch.int32)
+        if self.coherent:
+            key = _coherent_key(st, dead, self.scene)
+            perm = torch.sort(key, stable=True).indices
+            idx = idx[perm]
+            key_sorted = key[perm]
+        else:
+            key = (dead << 30) | idx
+            prefix = self.prefs[k]
+            perm = _bsort_perm(key, prefix, self.segments)
+            key_sorted = key[perm]
+            idx = key_sorted & ((1 << 30) - 1)
+            if prefix is not None and 0 < prefix < n:
+                self.unpermute_segments = 1     # rays left their segments
+        self.acc_pix, self.idx = acc_pix[perm], idx
+        live = ((key_sorted >> 30) == 0).to(torch.float32)
+        self.lives[k] = live
+        self.state_in = torch.cat([st[:9, perm], st.new_zeros(3, n),
+                                   live[None]])
+
+    def _unpermute(self) -> None:
+        # merge the last phase's pixels with the earlier ones, then put them
+        # back in ray order by sorting on the original ray id
+        st = self.st
+        pix = pack_pix(st[9], st[10], st[11])
+        merged = torch.where(self.state_in[12] > 0.0, pix, self.acc_pix)
+        unperm = _bsort_perm(self.idx, None, self.unpermute_segments)
+        self.img = _to_image(self.ro, merged[unperm], self.width,
+                             self.height)
+
+
+GRAPH_ENTRIES = 4       # keys kept, the least recently used dropped first
+_graphs: OrderedDict = OrderedDict()    # key -> _FrameGraphs, or _Seen
+
+
+def megakernel_eager(*args, **kw):
+    """``megakernel`` under another name: a multi-phase frame through it
+    runs its launches one by one, since the graphs engage for ``megakernel``
+    alone; what a replayed frame is checked and timed against."""
+    return megakernel(*args, **kw)
+
+
+def release_graphs() -> None:
+    """Drop every kept frame graph, and with it its memory pool and its
+    hold on its layout."""
+    _graphs.clear()
+
+
+def _graphs_engage(device, kernel, with_stats: bool, c) -> bool:
+    """Whether a multi-phase frame may run from CUDA graphs: on a CUDA
+    device, through K1's own wrapper (a checking or timing ``kernel`` keeps
+    every launch it wraps), and without K1's counters, asked for or run
+    under ``counting()`` with stats (K1's counting variant)."""
+    return (device.type == "cuda" and kernel is megakernel
+            and not with_stats and not stats_on(c))
+
+
+def _graph_key(scene: PallasScene, device, *static) -> tuple:
+    """What a frame's captured launches depend on besides the camera: the
+    address, shape and dtype of each layout tensor, the device, and the
+    render's static arguments, in a fixed order (a list as a tuple).  Its
+    cost is host time at the start of every frame, before the first
+    launch."""
+    return (device, tuple((t.data_ptr(), t.shape, t.dtype) for t in scene),
+            tuple(tuple(v) if isinstance(v, list) else v for v in static))
+
+
+def _capture(launches: Callable, pool):
+    """``launches()`` captured as a CUDA graph in the memory pool
+    ``pool``."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        launches()
+    return graph
+
+
+def _keep_graphs(key, graphs) -> None:
+    _graphs[key] = graphs
+    while len(_graphs) > GRAPH_ENTRIES:
+        _graphs.popitem(last=False)
+
+
+class _Seen:
+    """A key's first frame, by weak references to its layout tensors: it
+    keeps none of them alive, and ``of(scene)`` holds only while those
+    very tensors live, so a layout built later at a freed layout's
+    addresses is new to it."""
+
+    def __init__(self, scene: PallasScene):
+        self.refs = [weakref.ref(t) for t in scene]
+
+    def of(self, scene: PallasScene) -> bool:
+        return all(r() is t for r, t in zip(self.refs, scene))
+
+
+class _FrameGraphs:
+    """A frame's spans captured as CUDA graphs, one a span, all in one
+    memory pool, and replayed in the order captured.  It holds the layout
+    (the graphs read its tensors at their addresses, which no other tensor
+    can take while it lives) and the captured ``_Frame``: the params vector,
+    the graphs' one input, and the tensors that cross spans, among them
+    the image and the live masks, which are read after a replay.  The
+    capture counts K1's launches as the eager chain would, once, into
+    ``launches`` and the ``counting()`` around it; the frames that replay
+    it later add ``launches`` again."""
+
+    def __init__(self, scene: PallasScene, frame: _Frame):
+        self.scene, self.frame = scene, frame
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        with counting(stats=False) as self.launches:
+            for name, launches in frame.spans():
+                with span(name):
+                    self.graphs.append((name, _capture(launches, pool)))
+
+    def replay(self, cam: Camera) -> torch.Tensor:
+        """The frame of ``cam``: its 12 floats copied into the params
+        vector, each span's graph replayed, the image copied out of the
+        pool into a tensor of its own, which the next replay leaves as it
+        is; the rays and survivors a phase counted."""
+        with span("rt.rays"):
+            torch.cat([cam.llc, cam.horizontal, cam.vertical, cam.origin],
+                      out=self.frame.ro.params[:12])
+        for name, graph in self.graphs[:-1]:
+            with span(name):
+                graph.replay()
+        name, graph = self.graphs[-1]
+        with span(name):
+            graph.replay()
+            img = self.frame.img.clone()
+        c = counters()
+        if c is not None:
+            self.frame.count(c)
+        return img
+
+
 def render_pallas_twophase(scene: PallasScene, cam: Camera, width: int,
                            height: int, max_depth: int = MAX_DEPTH,
                            phase1_depth: int = 6, tile: int = DEFAULT_TILE,
@@ -1005,15 +1214,27 @@ def render_pallas_twophase(scene: PallasScene, cam: Camera, width: int,
 
     ``with_stats`` also returns exact counter sums, in total and per phase.
     ``kernel`` runs K1, as in ``render_pallas``.
+
+    Where ``_graphs_engage`` holds (a CUDA device, K1's own wrapper, no K1
+    counters), a frame whose ``_graph_key`` (the layout tensors' addresses,
+    shapes and dtypes, the device, the static arguments: all but the
+    camera) was seen once before captures each span's launches as a CUDA
+    graph, and later frames with that key replay them; the first frame runs
+    its launches one by one, as every other frame does.  A key counts as
+    seen only while its first frame's layout tensors live, so a layout
+    rebuilt every frame never captures.  The image is the same bit for bit,
+    in a tensor of its own.  ``render.graph`` counts each frame's route.
+    The graphs of up to ``GRAPH_ENTRIES`` keys are kept, each with its
+    layout and its memory pool (317 MB reserved at 1000x1000), until they
+    are the least recently used of more keys or ``release_graphs()`` drops
+    them: until then the layout outlives the caller's references.
     """
     if schedule is None:
         schedule = (phase1_depth,)
     if sum(schedule) >= max_depth:
         raise ValueError(f"schedule {schedule} must end before max_depth "
                          f"{max_depth}")
-    ro = _ray_order(cam, width, height, tile, block, row0, total_height, 0)
-    Rp = ro.n_rays
-    dev = ro.params.device
+    Rp = _ray_shape(width, height, tile, block)[0]
     t2 = tile if tile2 is None else tile2
     if t2 <= 0 or Rp % t2:
         raise ValueError(f"tile2 {t2} must divide the {Rp} padded rays")
@@ -1026,65 +1247,46 @@ def render_pallas_twophase(scene: PallasScene, cam: Camera, width: int,
     kw = dict(far_root=far_root, cull=cull, lane_groups=lane_groups,
               with_stats=with_stats or stats_on(c))
 
-    state_in = acc_pix = idx = None
-    live_in = Rp
-    unpermute_segments = S
-    phase_stats = []
-    for k, depth in enumerate(depths):
-        with span(f"rt.phase{k}"):
-            params = ro.params.clone()
-            params[13:14].fill_(depth)  # on the device, without a host copy
-            st, stats = kernel(scene, params, Rp, tile if k == 0 else t2,
-                               block_tiled=(k == 0 and block is not None),
-                               state_in=state_in, emit_state=True,
-                               force_occl=occl_cont and k > 0, **kw)
-        if with_stats:
-            phase_stats.append(stats)
-        if c is not None:
-            _count_phase(c, k, Rp, live_in, stats)
-        if k == len(schedule):
-            break
-        with span(f"rt.boundary{k}"):
-            # rays that died this phase hold their colour in rr/rg/rb (zero
-            # for the others), so a plain add takes each pixel from one phase
-            pix = pack_pix(st[9], st[10], st[11])
-            acc_pix = pix if acc_pix is None else acc_pix + pix
-            if idx is None:
-                idx = torch.arange(Rp, dtype=torch.int32, device=dev)
-            dead = (st[12] <= 0.0).to(torch.int32)
-            if coherent:
-                key = _coherent_key(st, dead, scene)
-                perm = torch.sort(key, stable=True).indices
-                idx = idx[perm]
-                key_sorted = key[perm]
-            else:
-                key = (dead << 30) | idx
-                perm = _bsort_perm(key, prefs[k], S)
-                key_sorted = key[perm]
-                idx = key_sorted & ((1 << 30) - 1)
-                if prefs[k] is not None and 0 < prefs[k] < Rp:
-                    unpermute_segments = 1      # rays left their segments
-            acc_pix = acc_pix[perm]
-            live = ((key_sorted >> 30) == 0).to(torch.float32)
-            state_in = torch.cat([st[:9, perm],
-                                  st.new_zeros(3, Rp), live[None]])
-        if c is not None:
-            live_in = torch.count_nonzero(live)
-    # merge the last phase's pixels with the earlier ones, then put them
-    # back in ray order by sorting on the original ray id
-    with span("rt.unpermute"):
-        pix = pack_pix(st[9], st[10], st[11])
-        merged = torch.where(state_in[12] > 0.0, pix, acc_pix)
-        unperm = _bsort_perm(idx, None, unpermute_segments)
-        img = _to_image(ro, merged[unperm], width, height)
+    def frame() -> _Frame:
+        ro = _ray_order(cam, width, height, tile, block, row0, total_height,
+                        0)
+        return _Frame(scene, ro, width, height, depths, tile, t2, S, prefs,
+                      block, coherent, occl_cont, kernel, kw)
+
+    dev = cam.origin.device
+    if _graphs_engage(dev, kernel, with_stats, c):
+        key = _graph_key(scene, dev, width, height, max_depth, schedule,
+                         sort_prefix, tile, tile2, block, row0, total_height,
+                         seg_tiles, coherent, occl_cont, far_root, cull,
+                         lane_groups)
+        graphs = _graphs.pop(key, None)
+        if isinstance(graphs, _FrameGraphs):
+            route = "replay"
+            if c is not None:
+                c.add_all(graphs.launches)
+        elif isinstance(graphs, _Seen) and graphs.of(scene):
+            # the key's first frame ran its launches one by one: kernels
+            # loaded, K1's occupancy kept, the sorts' workspace sized
+            graphs, route = _FrameGraphs(scene, frame()), "capture"
+        else:
+            graphs, route = _Seen(scene), "eager"
+        _keep_graphs(key, graphs)
+        if route != "eager":
+            count("render.graph", 1, route)
+            return graphs.replay(cam)
+    count("render.graph", 1, "eager")
+    fr = frame()
+    fr.run()
+    if c is not None:
+        fr.count(c)
     if not with_stats:
-        return img
-    per = [_stats_dict(s) for s in phase_stats]
+        return fr.img
+    per = [_stats_dict(s) for s in fr.stats]
     out = {f"phase_{k}": [p[k] for p in per]
            for k in ("slot_tests", "ray_bounces", "cull_rows")}
     out.update({k: sum(p[k] for p in per)
                 for k in ("slot_tests", "ray_bounces", "cull_rows")})
-    return img, out
+    return fr.img, out
 
 
 # ---------------------------------------------------------------------------

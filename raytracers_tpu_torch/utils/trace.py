@@ -48,7 +48,11 @@ bounces alone:
 * ``mesh.allreduce_calls``, ``mesh.allreduce_bytes``: by caller
   (``train``: ``all_sum``; ``gather``: ``all_gather``), the mesh's
   collectives and the bytes this rank contributes to each;
-* ``train.steps``: the trainer's steps (``grad/inverse.py``).
+* ``train.steps``: the trainer's steps (``grad/inverse.py``);
+* ``render.graph``: by part, how each multi-phase frame's launches ran
+  (``render/megakernel.py`` ``render_pallas_twophase``): ``eager`` one by
+  one from Python, ``capture`` captured into CUDA graphs (then replayed
+  once), ``replay`` replayed from the graphs of an earlier frame.
 """
 from __future__ import annotations
 

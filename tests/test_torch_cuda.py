@@ -356,3 +356,178 @@ def test_bvh_build_on_card_equals_cpu(cuda, name, leaf_size):
                      leaf_size=leaf_size)
     for a, b in zip((*card.spheres, *card[1:]), (*host.spheres, *host[1:])):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+# the multi-phase frame from CUDA graphs (render_pallas_twophase)
+
+GRAPH_SIZE = 200
+GRAPH_SCHEDULES = {"rgbbox": (3, 4, 8), "irreg": (3, 6), "soup20k": (2, 3, 6)}
+
+
+@pytest.fixture
+def graphs(cuda, monkeypatch):
+    """A fresh cache of frame graphs."""
+    from collections import OrderedDict
+    monkeypatch.setattr(tmk, "_graphs", OrderedDict())
+    return tmk._graphs
+
+
+def _graph_kw(ps):
+    """The scene class's render arguments at depth 50."""
+    tile, block, schedule, prefix = pallas_config(ps.n_clusters)
+    return dict(max_depth=50, tile=tile, block=block, schedule=schedule,
+                sort_prefix=prefix)
+
+
+def _graph_case(name, device):
+    """The layout, camera and render arguments of a scene of each class
+    (C <= 16, C <= 128 and C > 128)."""
+    ps, cam = _soup20k(device) if name == "soup20k" else _scene(name, device)
+    kw = _graph_kw(ps)
+    assert kw["schedule"] == GRAPH_SCHEDULES[name]
+    return ps, cam, kw
+
+
+def _jittered(cam, n, seed=0):
+    """``n`` cameras, the lower-left corner of each moved by up to half a
+    pixel each way."""
+    g = torch.Generator().manual_seed(seed)
+    jit = (torch.rand(n, 2, generator=g) - 0.5).tolist()
+    return [cam._replace(llc=cam.llc + (a / GRAPH_SIZE) * cam.horizontal
+                         + (b / GRAPH_SIZE) * cam.vertical) for a, b in jit]
+
+
+def _frame(ps, cam, kw, **extra):
+    """One frame and the route ``render.graph`` counted for it."""
+    with counting(stats=False) as c:
+        img = tmk.render_pallas_twophase(ps, cam, GRAPH_SIZE, GRAPH_SIZE,
+                                         **kw, **extra)
+    (route,) = set(c.read()["render.graph"]) - {"total"}
+    return img, route
+
+
+@pytest.mark.parametrize("name", list(GRAPH_SCHEDULES))
+def test_replayed_frames_equal_eager_frames(graphs, name):
+    """Over 16 jittered cameras: one frame eager, one captured, the rest
+    replayed, each bit-equal to the eager chain's frame; every frame kept
+    is a tensor of its own, unchanged by the replays after it."""
+    ps, cam, kw = _graph_case(name, torch.device("cuda"))
+    kept, want, routes = [], [], []
+    for c in _jittered(cam, 16):
+        img, route = _frame(ps, c, kw)
+        kept.append(img)
+        routes.append(route)
+        want.append(_frame(ps, c, kw, kernel=tmk.megakernel_eager)[0])
+    assert routes == ["eager", "capture"] + ["replay"] * 14
+    assert len({img.data_ptr() for img in kept}) == len(kept)
+    torch.cuda.synchronize()
+    for img, ref in zip(kept, want):
+        assert torch.equal(img, ref)
+    assert len({tuple(img.reshape(-1)[::97].tolist()) for img in kept}) > 1
+
+
+def test_a_replay_reads_the_layout_as_it_is_now(graphs):
+    """An in-place change of the spheres' colours shows in the next
+    replay."""
+    ps, cam, kw = _graph_case("rgbbox", torch.device("cuda"))
+    for _ in range(3):
+        before, route = _frame(ps, cam, kw)
+    assert route == "replay"
+    ps.sphT[..., 4:7] *= 0.5
+    after, route = _frame(ps, cam, kw)
+    want = _frame(ps, cam, kw, kernel=tmk.megakernel_eager)[0]
+    assert route == "replay"
+    assert torch.equal(after, want) and not torch.equal(after, before)
+
+
+def test_a_rebuilt_layout_never_replays_a_stale_entry(graphs):
+    """A layout rebuilt from other colours, with the first one's
+    references dropped, lands at other addresses (the cache holds the
+    first one's tensors): its first frame runs eagerly, with its colours."""
+    sc = tscenes.by_name("irreg", device="cuda")
+    cam = tgeo.camera(sc.look_from, sc.look_at, (0., 1., 0.), sc.fov, 1.0,
+                      device="cuda")
+    ps = tmk.build_pallas_scene(sc.spheres, sort_origin=sc.look_from)
+    kw = _graph_kw(ps)
+    for _ in range(3):
+        old, route = _frame(ps, cam, kw)
+    assert route == "replay"
+    addresses = {t.data_ptr() for t in ps}
+    del ps
+    centre, radius, colour = sc.spheres
+    ps = tmk.build_pallas_scene(tgeo.Spheres(centre, radius, 1.0 - colour),
+                                sort_origin=sc.look_from)
+    assert not addresses & {t.data_ptr() for t in ps}
+    new, route = _frame(ps, cam, kw)
+    assert route == "eager"
+    assert torch.equal(new, _frame(ps, cam, kw,
+                                   kernel=tmk.megakernel_eager)[0])
+    assert not torch.equal(new, old)
+
+
+def test_a_layout_built_where_a_freed_one_was_runs_eagerly(graphs):
+    """A layout of the same shapes built after the first one is dropped
+    (the card's allocator may give it the freed addresses, and so the
+    freed layout's key): its first frame runs eagerly, its second
+    captures."""
+    sc = tscenes.by_name("irreg", device="cuda")
+    cam = tgeo.camera(sc.look_from, sc.look_at, (0., 1., 0.), sc.fov, 1.0,
+                      device="cuda")
+    ps = tmk.build_pallas_scene(sc.spheres, sort_origin=sc.look_from)
+    kw = _graph_kw(ps)
+    assert _frame(ps, cam, kw)[1] == "eager"
+    del ps
+    ps = tmk.build_pallas_scene(sc.spheres, sort_origin=sc.look_from)
+    assert [_frame(ps, cam, kw)[1] for _ in range(2)] == ["eager", "capture"]
+
+
+def test_a_replay_counts_as_the_eager_chain(graphs):
+    """Under ``counting(stats=False)`` a replayed frame adds the launches
+    by route, the rays and the survivors a phase that its eager chain adds,
+    and one frame to ``render.graph``."""
+    ps, cam, kw = _graph_case("rgbbox", torch.device("cuda"))
+    names = ("k1.launches", "k1.rays_launched", "k1.rays_live_in")
+    counts = {}
+    for route in ("eager", "capture", "replay", "kernel"):
+        with counting(stats=False) as c:
+            extra = (dict(kernel=tmk.megakernel_eager) if route == "kernel"
+                     else {})
+            tmk.render_pallas_twophase(ps, cam, GRAPH_SIZE, GRAPH_SIZE,
+                                       **kw, **extra)
+        n = c.read()
+        assert set(n["render.graph"]) == {"total", "eager" if route ==
+                                          "kernel" else route}
+        counts[route] = {k: n[k] for k in names}
+    assert counts["replay"]["k1.launches"]["total"] == 4
+    for route in ("eager", "capture", "replay"):
+        assert counts[route] == counts["kernel"]
+
+
+def test_replayed_kernels_belong_to_their_spans(graphs):
+    """Under torch.profiler, each replayed K1 launch is tied to the
+    ``rt.phase<k>`` span open at its replay, and each boundary's and the
+    unpermute's operations to theirs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ps, cam, kw = _graph_case("irreg", torch.device("cuda"))
+    for _ in range(2):
+        _frame(ps, cam, kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with counting(stats=False) as c:
+            tmk.render_pallas_twophase(ps, cam, GRAPH_SIZE, GRAPH_SIZE,
+                                       **kw)
+        torch.cuda.synchronize()
+    assert c.read()["render.graph"] == {"total": 1, "replay": 1}
+    events = list(prof.events())
+    tied = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("rt."):
+            tied.setdefault(e.name, []).extend(k.name for k in e.kernels)
+    for k in range(3):
+        assert sum("megakernel<" in n for n in tied[f"rt.phase{k}"]) == 1
+    assert not any("megakernel<" in n for s, ks in tied.items()
+                   if not s.startswith("rt.phase") for n in ks)
+    for s in ("rt.boundary0", "rt.boundary1", "rt.unpermute"):
+        assert tied[s]
